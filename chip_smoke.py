@@ -10,8 +10,9 @@
    the card at full 16 kB pages (131072 cells), bit for bit: rows that are
    and are not multiples of 8, every read kind (``parity`` with 1..8
    references), every op, both inversion flags, words with bit 31 set.
-   Then times each kernel and its plain version with CUDA events at the
-   shapes the main path gives it.
+   Then, at the shapes the main path gives each kernel, holds it against
+   its plain version once more and times both with CUDA events (and the
+   one PyTorch call that computes the same function, where there is one).
 3. Drives the compute-session main path, ``ComputeSession(device="cuda")``
    on the default SSD (16 channels x 8 dies, 16 kB pages): the seven
    Table-1 ops and the TLC AND3/OR3 fast paths under mlc, tlc and
@@ -194,10 +195,13 @@ def check_kernels(gen: torch.Generator) -> dict:
     return errs
 
 
-def time_kernels(gen: torch.Generator, fused_n: int, rows: int) -> dict:
-    """Kernel and plain-version times at the main path's shapes: a sense
-    group of ``rows`` pages, a ``fused_n``-operand fused chain over them,
-    and a two-operand combine / root popcount of ``rows`` pages of words."""
+def time_kernels(gen: torch.Generator, errs: dict, fused_n: int,
+                 rows: int) -> dict:
+    """Each kernel against its plain version, bit for bit, then both timed,
+    at the main path's shapes: a sense group of ``rows`` pages, a
+    ``fused_n``-operand fused chain over them, and a two-operand combine /
+    root popcount of ``rows`` pages of words.  Folds the differences into
+    ``errs``."""
     from repro_torch.kernels import bitops, fused, mlc_sense, popcount
 
     words = rows * COLS // 32
@@ -212,12 +216,13 @@ def time_kernels(gen: torch.Generator, fused_n: int, rows: int) -> dict:
         "mlc_sense": (
             lambda: mlc_sense.mlc_sense(vth, lsb, kind="lsb", n_refs=1),
             lambda: mlc_sense.reference(vth, lsb, "lsb", False, 1),
-            rows * COLS * cell_bytes, rows * COLS * KIND_COMPARES["lsb"], 20),
+            None, rows * COLS * cell_bytes,
+            rows * COLS * KIND_COMPARES["lsb"], 20),
         "sense_reduce": (
             lambda: fused.sense_reduce(stack, lsb, kind="lsb", sense_invert=False,
                                        op="and", n_refs=1),
             lambda: fused.reference(stack, lsb, "lsb", False, "and", False, 1),
-            fused_n * rows * COLS * 4 + rows * COLS / 8,
+            None, fused_n * rows * COLS * 4 + rows * COLS / 8,
             fused_n * rows * COLS * 2, 5),
         "sense_reduce_popcount": (
             lambda: fused.sense_reduce_popcount(stack, lsb, mask, kind="lsb",
@@ -225,25 +230,36 @@ def time_kernels(gen: torch.Generator, fused_n: int, rows: int) -> dict:
                                                 n_refs=1),
             lambda: fused.reference_popcount(stack, lsb, mask, "lsb", False,
                                              "and", False, 1),
-            fused_n * rows * COLS * 4 + rows * COLS / 8 + rows * 4,
+            None, fused_n * rows * COLS * 4 + rows * COLS / 8 + rows * 4,
             fused_n * rows * COLS * 2 + rows * COLS, 5),
         "bitwise_reduce": (
             lambda: bitops.bitwise_reduce(pair, op="or"),
             lambda: bitops.reference(pair, "or", False),
+            lambda: torch.bitwise_or(pair[0], pair[1]),
             3 * words * 4, words, 50),
         "popcount_rows": (
             lambda: popcount.popcount_rows(flat),
             lambda: popcount.reference(flat),
-            words * 4 + 4, words * 2, 50),
+            None, words * 4 + 4, words * 2, 50),
     }
     out = {}
-    for name, (kernel, plain, n_bytes, n_ops, iters) in plan.items():
+    for name, (kernel, plain, library, n_bytes, n_ops, iters) in plan.items():
+        err = word_err(kernel(), plain())
+        if library is not None:
+            err = max(err, word_err(kernel(), library()))
+        sync()
+        if err:
+            fail(f"{name} disagrees with its plain version at the main "
+                 f"path's shape: max word difference {err}")
+        errs[name] = max(errs[name], err)
         bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
         ops_ms = n_ops / FP32_OPS_PER_S * 1e3
         plain_iters = max(2, iters // 5)
         out[name] = {
             "ms": time_ms(kernel, iters),
             "plain_ms": time_ms(plain, plain_iters, warmup=1),
+            "library_ms": (time_ms(library, iters) if library is not None
+                           else None),
             "device_ms": device_ms(kernel, iters),
             "plain_device_ms": device_ms(plain, plain_iters),
             "bound_ms": max(bytes_ms, ops_ms),
@@ -409,9 +425,10 @@ def main() -> int:
     print(f"kernels vs plain versions: bit-exact ({time.perf_counter() - t:.1f} s)",
           flush=True)
     t = time.perf_counter()
-    timing = time_kernels(gen, fused_n=BITMAP_DAYS // 2,
+    timing = time_kernels(gen, errs, fused_n=BITMAP_DAYS // 2,
                           rows=BITMAP_USERS // COLS)
-    print(f"kernel timing ({time.perf_counter() - t:.1f} s), device ms per call "
+    print(f"kernels vs plain versions at the main path's shapes: bit-exact; "
+          f"timing ({time.perf_counter() - t:.1f} s), device ms per call "
           "(torch.profiler; kernel / plain): " + json.dumps(
               {k: [v["device_ms"], v["plain_device_ms"]] for k, v in timing.items()}),
           flush=True)
@@ -455,7 +472,8 @@ def main() -> int:
                         "replaces": replaces, "launches": launches[name],
                         "max_abs_err": errs[name], "ms": tm["ms"],
                         "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
-                        "bound_by": tm["bound_by"], "library_ms": None})
+                        "bound_by": tm["bound_by"],
+                        "library_ms": tm["library_ms"]})
     record.update(main_path=run, launches=launches, kernels=kernels,
                   timing=timing)
     out_dir = ROOT / "chiprun_out"

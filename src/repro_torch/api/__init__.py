@@ -23,9 +23,6 @@ _LAZY = {
     "Executor": "repro_torch.api.executor",
     "ExecPlan": "repro_torch.api.executor",
     "Backend": "repro_torch.api.backends",
-    "SimBackend": "repro_torch.api.backends",
-    "CudaBackend": "repro_torch.api.backends",
-    "get_backend": "repro_torch.api.backends",
 }
 
 __all__ = ["ExecutableCache", "LEDGER_MODES", "Ledger", "PlanCache",

@@ -1,134 +1,49 @@
-"""Pluggable execution backends for the compute-session layer.
+"""The execution backend of the compute-session layer.
 
-A :class:`Backend` turns read plans and packed bit-vectors into numbers.
-Two implementations ship:
+A :class:`Backend` turns read plans and packed bit-vectors into numbers
+through the kernels' wrappers (:mod:`repro_torch.kernels.ops`), which
+launch the hand-written CUDA kernel for a CUDA tensor and run its plain
+PyTorch version for a CPU tensor.  There is one backend; its ``name``
+says which of the two the device it serves runs: ``"cuda"`` on a card,
+``"sim"`` on the CPU.
 
-- :class:`SimBackend` (``"sim"``) — the plain PyTorch versions
-  (:mod:`repro_torch.kernels.ref`), on whatever device the tensors live.
-- :class:`CudaBackend` (``"cuda"``) — the hand-written CUDA kernels through
-  their wrappers, which launch the kernel for CUDA tensors and run the
-  plain version for CPU tensors.
-
-Both consume and produce the lane-major packed layout as int32 words, so
-a session can swap backends without touching stored data, and parity
-tests can compare them word for word.
+It consumes and produces the lane-major packed layout as int32 words.
 """
 from __future__ import annotations
-
-from typing import Protocol, runtime_checkable
 
 import torch
 
 from repro_torch.core.mcflash import ReadPlan
 from repro_torch.kernels import ops as kops
-from repro_torch.kernels import ref as kernel_ref
 
 
-@runtime_checkable
-class Backend(Protocol):
-    """Minimal execution surface a session needs."""
+class Backend:
+    """The kernels, for the tensors of one torch device."""
 
-    name: str
+    def __init__(self, device: torch.device):
+        #: ``"cuda"`` (the CUDA kernels) or ``"sim"`` (the plain versions)
+        self.name = "cuda" if torch.device(device).type == "cuda" else "sim"
 
     def sense(self, vth: torch.Tensor, plan: ReadPlan) -> torch.Tensor:
         """(R, C) Vth + read plan -> (R, C//32) packed int32."""
-        ...
-
-    def reduce(self, stack: torch.Tensor, op: str, invert: bool = False) -> torch.Tensor:
-        """(N, R, W) packed operands -> (R, W) op-reduction (controller combine)."""
-        ...
-
-    def popcount(self, words: torch.Tensor) -> torch.Tensor:
-        """(R, W) packed words -> (R,) int32 bit counts."""
-        ...
-
-    def sense_reduce(self, vth: torch.Tensor, plan: ReadPlan, *, op: str,
-                     invert: bool = False) -> torch.Tensor:
-        """Fused chain: (N, R, C) same-plan Vth -> (R, C//32) packed."""
-        ...
-
-    def sense_reduce_popcount(self, vth: torch.Tensor, plan: ReadPlan,
-                              mask: torch.Tensor, *, op: str,
-                              invert: bool = False) -> torch.Tensor:
-        """Fused chain + masked popcount: (N, R, C) Vth -> (R,) int32."""
-        ...
-
-
-class SimBackend:
-    """The plain PyTorch versions (:mod:`repro_torch.kernels.ref`)."""
-
-    name = "sim"
-
-    def sense(self, vth: torch.Tensor, plan: ReadPlan) -> torch.Tensor:
-        return kernel_ref.mlc_sense(vth, plan.refs, plan.kind,
-                                    invert=plan.uses_inverse,
-                                    n_refs=len(plan.refs))
-
-    def reduce(self, stack: torch.Tensor, op: str, invert: bool = False) -> torch.Tensor:
-        return kernel_ref.bitwise_reduce(stack, op, invert)
-
-    def popcount(self, words: torch.Tensor) -> torch.Tensor:
-        return kernel_ref.popcount_rows(words)
-
-    def sense_reduce(self, vth: torch.Tensor, plan: ReadPlan, *, op: str,
-                     invert: bool = False) -> torch.Tensor:
-        return kernel_ref.sense_reduce(vth, plan.refs, plan.kind,
-                                       plan.uses_inverse, op, invert,
-                                       n_refs=len(plan.refs))
-
-    def sense_reduce_popcount(self, vth: torch.Tensor, plan: ReadPlan,
-                              mask: torch.Tensor, *, op: str,
-                              invert: bool = False) -> torch.Tensor:
-        return kernel_ref.sense_reduce_popcount(vth, plan.refs, mask,
-                                                plan.kind, plan.uses_inverse,
-                                                op, invert,
-                                                n_refs=len(plan.refs))
-
-
-class CudaBackend:
-    """The hand-written CUDA kernels (:mod:`repro_torch.kernels`)."""
-
-    name = "cuda"
-
-    def sense(self, vth: torch.Tensor, plan: ReadPlan) -> torch.Tensor:
         return kops.sense_plan(vth, plan)
 
     def reduce(self, stack: torch.Tensor, op: str, invert: bool = False) -> torch.Tensor:
+        """(N, R, W) packed operands -> (R, W) op-reduction (controller combine)."""
         return kops.bitwise_reduce(stack, op=op, invert=invert)
 
     def popcount(self, words: torch.Tensor) -> torch.Tensor:
+        """(R, W) packed words -> (R,) int32 bit counts."""
         return kops.popcount_rows(words)
 
     def sense_reduce(self, vth: torch.Tensor, plan: ReadPlan, *, op: str,
                      invert: bool = False) -> torch.Tensor:
+        """Fused chain: (N, R, C) same-plan Vth -> (R, C//32) packed."""
         return kops.sense_reduce_plan(vth, plan, op=op, invert=invert)
 
     def sense_reduce_popcount(self, vth: torch.Tensor, plan: ReadPlan,
                               mask: torch.Tensor, *, op: str,
                               invert: bool = False) -> torch.Tensor:
+        """Fused chain + masked popcount: (N, R, C) Vth -> (R,) int32."""
         return kops.sense_reduce_popcount_plan(vth, plan, mask, op=op,
                                                invert=invert)
-
-
-_NAMED = {"sim": SimBackend, "cuda": CudaBackend}
-
-
-def default_backend(device: torch.device) -> Backend:
-    """The kernels on a card, the plain versions on the CPU."""
-    return CudaBackend() if device.type == "cuda" else SimBackend()
-
-
-def get_backend(spec: "str | Backend | None", device: torch.device) -> Backend:
-    """Resolve a backend name / instance; ``None`` -> :func:`default_backend`."""
-    if spec is None:
-        return default_backend(device)
-    if isinstance(spec, str):
-        try:
-            return _NAMED[spec]()
-        except KeyError:
-            raise ValueError(
-                f"unknown backend {spec!r}; expected one of {sorted(_NAMED)}"
-            ) from None
-    if isinstance(spec, Backend):
-        return spec
-    raise TypeError(f"cannot interpret {spec!r} as a backend")

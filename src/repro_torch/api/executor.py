@@ -36,21 +36,18 @@ from repro_torch.api.graph import ASSOCIATIVE, BASE_OF, Leaf, Node, Op
 from repro_torch.core import tlc as _tlc
 from repro_torch.core.mcflash import ReadPlan
 from repro_torch.flash.device import PAGE_READ_OP
-from repro_torch.kernels.ref import TILE_COLS
 from repro_torch.obs.trace import traced
 
 __all__ = ["ExecPlan", "Executor", "ProgramStep", "Wave",
-           "DEFAULT_TILE_BUDGET_BYTES"]
+           "MAX_FUSED_OPERANDS"]
 
 WordlineKey = Tuple[int, int, int]
 
-#: bytes of one fused operand tile (8 rows x 4096 cells of float32 Vth)
-OPERAND_TILE_BYTES = 8 * TILE_COLS * 4
-#: default tile budget of one fused pass: 32 operands, the JAX package's
-#: VMEM budget's default, so both packages split long chains alike.
-#: The CUDA kernel keeps one word per operand in registers and no operand
-#: tile in shared memory, so on the card the budget shapes plans only.
-DEFAULT_TILE_BUDGET_BYTES = 4 * 1024 * 1024
+#: most operands one fused pass takes: 32, what the JAX package's default
+#: VMEM budget allows, so both packages split long chains alike.  The CUDA
+#: kernel keeps one word per operand in registers and no operand tile in
+#: shared memory, so on the card this shapes plans only.
+MAX_FUSED_OPERANDS = 32
 
 
 @dataclasses.dataclass
@@ -84,7 +81,7 @@ class FusedSpec:
     n_operands: int
     n_pages: int
     dies: Tuple[int, ...] = ()    # dies spanned by the operand pages (sorted)
-    #: operands streamed per tile-budgeted pass
+    #: operands taken per fused pass
     pass_operands: int = 1
     #: owning serving-request ids (attribution only, never keyed on)
     rids: Tuple[int, ...] = ()
@@ -289,7 +286,7 @@ class _Lowering:
                 "not", (meta.role,), self.device.tlc_chip, meta.encoding)
             return self._item(name, meta.pages, plan, plan.op,
                               is_mcflash=True)
-        meta = self.ftl.ensure_not_ready(name, backend=self.session.backend)
+        meta = self.ftl.ensure_not_ready(name)
         return self._item(meta.name, meta.pages, self.session.plan("not"),
                           "not", is_mcflash=True)
 
@@ -555,20 +552,13 @@ class _TraceCounter:
 
 
 class Executor:
-    """Session-bound executor over the device-shared runner cache, with a
-    tile budget bounding the operands of one fused pass."""
+    """Session-bound executor over the device-shared runner cache."""
 
-    def __init__(self, session, tile_budget_bytes: Optional[int] = None):
+    def __init__(self, session):
         self.session = session
         self.cache = session.device.executables
-        if tile_budget_bytes is None:
-            tile_budget_bytes = DEFAULT_TILE_BUDGET_BYTES
-        if tile_budget_bytes <= 0:
-            raise ValueError(tile_budget_bytes)
-        self.tile_budget_bytes = int(tile_budget_bytes)
         #: most operands one fused pass may take
-        self.max_fused_operands = max(
-            1, self.tile_budget_bytes // OPERAND_TILE_BYTES)
+        self.max_fused_operands = MAX_FUSED_OPERANDS
         self._traces = _TraceCounter()
 
     @property
@@ -612,7 +602,7 @@ class Executor:
         return _Lowering(self.session).lower_many(nodes, rids)
 
     def _fused_chunks(self, n_operands: int) -> int:
-        """Passes a fused spec needs under the tile budget."""
+        """Passes a fused spec needs at ``max_fused_operands`` per pass."""
         return -(-n_operands // self.max_fused_operands)
 
     # -- internals ---------------------------------------------------------------
@@ -738,8 +728,8 @@ class Executor:
             si for si, st in enumerate(plan.steps) if st.fused is not None)}
 
         def fused_reduce(st: CombineStep, vth: torch.Tensor) -> torch.Tensor:
-            """Fused sense->reduce, split into tile-budgeted passes when the
-            operand stack exceeds the budget."""
+            """Fused sense->reduce, split into passes of ``max_ops``
+            operands when the stack holds more."""
             f = st.fused
             if f.n_operands <= max_ops:
                 return backend.sense_reduce(vth, f.plan, op=st.op,

@@ -10,9 +10,10 @@ a lazy op DAG, and on :meth:`materialize`:
    shape was seen before;
 3. books every command in the unified :class:`~repro_torch.api.ledger.Ledger`.
 
-The session runs on the card: ``device=None`` means ``"cuda"`` with the
-``cuda`` backend (the hand-written kernels), and raises when there is no
-card.  ``device="cpu"`` runs the ``sim`` backend (the plain versions).
+The session runs on the card: ``device=None`` means ``"cuda"``, where the
+backend launches the hand-written kernels (``stats()["backend"]`` is
+``"cuda"``), and raises when there is no card.  ``device="cpu"`` runs the
+kernels' plain versions (backend ``"sim"``).
 
 Not ported yet, and raising ``NotImplementedError`` when asked for: plan
 verification (``verify=`` other than ``"off"``, ROADMAP queue 1 item 6),
@@ -27,7 +28,7 @@ from typing import Iterable, List, Tuple
 import numpy as np
 import torch
 
-from repro_torch.api.backends import Backend, get_backend
+from repro_torch.api.backends import Backend
 from repro_torch.api.executor import ExecPlan, Executor
 from repro_torch.api.graph import ASSOCIATIVE, BitVector, Leaf, simplify
 from repro_torch.api.hostio import DrainHandle, HostDrainQueue
@@ -48,7 +49,7 @@ _SESSION_COUNTERS = (
     ("sense_batches", "batched per-die sense kernel dispatches"),
     ("sense_waves", "topology-schedule waves dispatched"),
     ("megakernel_calls", "fused sense->reduce(->popcount) passes"),
-    ("tiled_megakernel_splits", "fused chains split for the tile budget"),
+    ("tiled_megakernel_splits", "fused chains split into several passes"),
     ("host_drain_submits", "async device->host transfers enqueued"),
     ("host_drain_blocks", "drain-queue backpressure stalls (queue full)"),
     ("coalesced_sense_groups", "batch sense groups shared by >1 request"),
@@ -80,15 +81,12 @@ class ComputeSession:
 
     ``device`` is the torch device (``None`` = the card).  ``flash`` or
     ``ftl`` wrap an existing :class:`~repro_torch.flash.device.FlashDevice`
-    (its device then rules).  ``backend`` defaults to ``"cuda"`` on a card
-    and ``"sim"`` on the CPU.
+    (its device then rules).
     """
 
     def __init__(self, device: "torch.device | str | None" = None, *,
-                 flash=None, ftl=None, backend: "str | Backend | None" = None,
-                 chip=None, config=None, timing=None, energy=None,
-                 seed: int = 0, tile_budget_bytes: "int | None" = None,
-                 encoding: str = tlc.MLC, trace: bool = False,
+                 flash=None, ftl=None, chip=None, config=None, timing=None, energy=None,
+                 seed: int = 0, encoding: str = tlc.MLC, trace: bool = False,
                  verify: "str | None" = "off", faults=None, recovery=None,
                  overlap: "bool | str | None" = None,
                  drain_depth: "int | None" = None):
@@ -127,9 +125,7 @@ class ComputeSession:
                                       **build_kwargs)
         self.torch_device = self.device.device
         self.ftl = ftl or getattr(self.device, "ftl", None) or FTL(self.device)
-        self.backend: Backend = get_backend(backend, self.torch_device)
-        # device-internal reads (copyback realignment) follow this backend
-        self.device.set_default_backend(self.backend)
+        self.backend: Backend = self.device.backend
         self.plans: PlanCache = self.device.plans     # shared per-chip plan cache
         self.ledger = self.device.ledger
         #: inter-resource ledger timing mode (see repro_torch.api.ledger)
@@ -147,7 +143,7 @@ class ComputeSession:
                     f"overlap must be True/False, 'overlap', 'sync', or "
                     f"'independent', got {overlap!r}")
             self.ledger.set_mode(mode, drain_depth=drain_depth)
-        self.executor = Executor(self, tile_budget_bytes=tile_budget_bytes)
+        self.executor = Executor(self)
         self.metrics = MetricsRegistry()
         for name, desc in _SESSION_COUNTERS:
             self.metrics.counter(name, desc)

@@ -79,18 +79,15 @@ class FlashDevice:
         # Executor runners: shared by every session on this device (keys
         # embed backend + plan signature), LRU-bounded.
         self.executables = ExecutableCache(capacity=exec_cache_capacity)
-        from repro_torch.api.backends import default_backend   # api layers above
-        self._default_backend = default_backend(self.device)
+        from repro_torch.api.backends import Backend   # api layers above
+        #: the kernels every sense of this device runs through
+        self.backend = Backend(self.device)
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(int(seed))
         self.ftl = None                # first-bound FTL registers itself here
         #: when set (by the executor's lowering pass) every shared-page
         #: program appends ``(label, wls)`` here
         self.program_log: "list | None" = None
-
-    def set_default_backend(self, backend) -> None:
-        """Backend used when a command doesn't pass one explicitly."""
-        self._default_backend = backend
 
     # -- geometry helpers ---------------------------------------------------
     def die_of_plane(self, plane: int) -> int:
@@ -257,7 +254,7 @@ class FlashDevice:
         self.ledger.add_die_batch(per_die, uj, commands=len(wls))
 
     def mcflash_read_batch(self, wls: List[WordlineKey], op: str, *,
-                           plan: ReadPlan | None = None, backend=None,
+                           plan: ReadPlan | None = None,
                            switch_op: bool = True) -> torch.Tensor:
         """Execute one MCFlash op over a batch of programmed wordlines: one
         backend sense call, one SET_FEATURE booked for the whole batch."""
@@ -267,8 +264,7 @@ class FlashDevice:
             plan = self.plans.get(op, self.chip)
         self.account_mcflash_batch(wls, op, switch_op=switch_op,
                                    phases=plan.sensing_phases)
-        return (backend or self._default_backend).sense(self.vth_stack(wls),
-                                                        plan)
+        return self.backend.sense(self.vth_stack(wls), plan)
 
     def page_read_plan(self, which: str = "lsb",
                        encoding: str = tlc.MLC) -> ReadPlan:
@@ -285,30 +281,28 @@ class FlashDevice:
         return ReadPlan("page_msb", "msb", (v0, v2), 2)
 
     def page_read_batch(self, wls: List[WordlineKey], which: str = "lsb", *,
-                        backend=None, encoding: str = tlc.MLC) -> torch.Tensor:
+                        encoding: str = tlc.MLC) -> torch.Tensor:
         """Standard (default-reference) read of a batch of pages in one
         sense call -> (N, words) packed."""
         if not wls:
             raise ValueError("empty wordline batch")
         plan = self.page_read_plan(which, encoding)
         self.account_page_read_batch(wls, which, phases=plan.sensing_phases)
-        return (backend or self._default_backend).sense(self.vth_stack(wls), plan)
+        return self.backend.sense(self.vth_stack(wls), plan)
 
     def page_read(self, wl: WordlineKey, which: str = "lsb",
-                  packed: bool = True, *, backend=None,
-                  encoding: str = tlc.MLC) -> torch.Tensor:
+                  packed: bool = True, *, encoding: str = tlc.MLC) -> torch.Tensor:
         """Standard (default-reference) page read."""
-        out = self.page_read_batch([wl], which, backend=backend,
-                                   encoding=encoding)
+        out = self.page_read_batch([wl], which, encoding=encoding)
         return out[0] if packed else kernel_ref.unpack_bits(out)[0]
 
     def copyback_align(self, src_a: WordlineKey, src_b: WordlineKey,
                        dst: WordlineKey, which_a: str = "lsb",
-                       which_b: str = "lsb", *, backend=None) -> None:
+                       which_b: str = "lsb") -> None:
         """Realign two scattered operands onto one shared wordline (Fig 9e):
         two page reads + one shared-page copyback program, on die."""
-        a = self.page_read(src_a, which_a, packed=False, backend=backend)
-        b = self.page_read(src_b, which_b, packed=False, backend=backend)
+        a = self.page_read(src_a, which_a, packed=False)
+        b = self.page_read(src_b, which_b, packed=False)
         self.program_shared(dst, a, b)
 
     def erase_block(self, plane: int, block: int) -> None:

@@ -330,7 +330,7 @@ class FTL:
             return
         self.align_group(distinct)
 
-    def ensure_not_ready(self, name: str, *, backend=None) -> VectorMeta:
+    def ensure_not_ready(self, name: str) -> VectorMeta:
         """Placement for an in-flash NOT: the operand must sit in the MSB page
         over a zero LSB page (paper Table 1).  Vectors stored any other way
         are copyback-rewritten once into a NOT-ready placement, cached under
@@ -345,8 +345,7 @@ class FTL:
         if copy not in self.vectors:
             with traced(self._tracer, "ftl", f"not-ready-copy[{name}]",
                         pages=len(meta.pages)):
-                packed = self.device.page_read_batch(meta.pages, meta.role,
-                                                     backend=backend)
+                packed = self.device.page_read_batch(meta.pages, meta.role)
                 self.device.dma_to_controller_batch(meta.pages)
                 bits = kernel_ref.unpack_bits(
                     packed.reshape(1, -1))[0][: meta.n_bits]

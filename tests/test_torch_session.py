@@ -107,11 +107,11 @@ def _check_session(encoding, dies):
                                       np.asarray(ref.materialize(r_expr)))
 
 
-def test_loaded_arena_and_tile_budget_match_reference():
+def test_loaded_arena_and_chain_split_match_reference():
     """A direct (non-inverse) XOR clamps below the DAC range and misreads
     many cells: after the load both packages misread the same ones.  A chain
-    longer than one fused pass splits into the same passes as the
-    reference's VMEM budget."""
+    longer than one fused pass (32 operands) splits into the same passes as
+    the reference's default VMEM budget gives."""
     ref, port = _sessions("mlc", 2)
     rng = np.random.default_rng(7)
     bits = [(rng.random(N_BITS) < 0.5).astype(np.uint8) for _ in range(2)]
@@ -136,20 +136,15 @@ def test_loaded_arena_and_tile_budget_match_reference():
     assert port.ledger.summary() == ref.ledger.summary()
 
     rng = np.random.default_rng(3)
-    n = 8192
-    bits = [(rng.random(n) < 0.7).astype(np.uint8) for _ in range(6)]
-    budget = 2 * 8 * 4096 * 4                        # two operands per pass
-    ref = RefSession(backend="sim", config=RefConfig(channels=1,
-                     dies_per_channel=2, page_kb=1), verify="off",
-                     vmem_budget_bytes=budget)
-    port = ComputeSession(device="cpu", config=SSDConfig(
-        channels=1, dies_per_channel=2, page_kb=1), tile_budget_bytes=budget)
+    n, n_ops = 8192, 66             # 33 paired ANDs: one operand too many
+    bits = [(rng.random(n) < 0.99).astype(np.uint8) for _ in range(n_ops)]
+    ref, port = _sessions("mlc", 2)
     for sess in (ref, port):
-        for i in range(0, 6, 2):
+        for i in range(0, n_ops, 2):
             sess.write_pair(f"v{i}", bits[i], f"v{i + 1}", bits[i + 1])
     want = np.logical_and.reduce([b.astype(bool) for b in bits])
-    r_expr = ref.chain("and", [f"v{i}" for i in range(6)])
-    p_expr = port.chain("and", [f"v{i}" for i in range(6)])
+    r_expr = ref.chain("and", [f"v{i}" for i in range(n_ops)])
+    p_expr = port.chain("and", [f"v{i}" for i in range(n_ops)])
     assert port.popcount(p_expr) == ref.popcount(r_expr) == int(want.sum())
     np.testing.assert_array_equal(
         port.materialize(p_expr, unpacked=True).numpy().astype(bool), want)
@@ -157,7 +152,8 @@ def test_loaded_arena_and_tile_budget_match_reference():
         np.asarray(ref.materialize(r_expr, unpacked=True)).astype(bool), want)
     for key in COUNTERS:
         assert getattr(port, key) == getattr(ref, key), key
-    assert port.tiled_megakernel_splits == 2
+    assert port.executor.max_fused_operands == 32
+    assert port.tiled_megakernel_splits == 2      # the count and the words
 
 
 @settings(max_examples=8, deadline=None, database=None)
@@ -222,20 +218,11 @@ def test_port_boundaries():
         with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
             ComputeSession(device="cpu", **kwargs)
 
-    # the cuda backend's wrappers take the plain versions for CPU tensors
-    sim, wrapped = (ComputeSession(device="cpu", backend=name, config=SSDConfig(
-        channels=1, dies_per_channel=2, page_kb=1)) for name in ("sim", "cuda"))
+    # on the CPU the kernels' wrappers take their plain versions: no launch
     before = dict(cuda.launches)
-    for sess in (sim, wrapped):
-        for i in range(0, 4, 2):
-            sess.write_pair(f"v{i}", bits[i % 2], f"v{i + 1}", bits[1 - i % 2])
-    for name in ("and", "xor"):
-        got = [(to_numpy(s.materialize(s.chain(name, ["v0", "v1", "v2", "v3"]))),
-                s.popcount(s["v0"].xnor(s["v3"]) | (s["v1"] & s["v2"])))
-               for s in (sim, wrapped)]
-        np.testing.assert_array_equal(got[0][0], got[1][0])
-        assert got[0][1] == got[1][1]
-    assert wrapped.backend.name == "cuda" and cuda.launches == before
+    count = port.popcount(port.chain("xor", [a, b, ~a]) | (a & b))
+    assert count == int((~bits[1].astype(bool) | (bits[0] & bits[1]).astype(bool)).sum())
+    assert port.stats()["backend"] == "sim" and cuda.launches == before
 
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
