@@ -20,8 +20,31 @@
    2**25 users, 256 pages each) with its popcount; an image-encryption XOR.
    Every result is held against a numpy oracle bit for bit, and every
    kernel's launch count must have risen during this phase.
-4. Prints the ``kernels`` JSON line, then a last line
-   ``{"ok": true, "device": {...}}``.
+4. Serving phase: a ``repro_torch.serve.QueryEngine`` with the default
+   ``SLOConfig`` over a session on the default SSD: 32 column bitmaps of
+   2**25 bits (16 MLC pairs over 16 dies, 2 GiB of Vth) and 96 requests in
+   the mix of ``benchmarks/serve_latency.py`` (pair AND, pair XOR,
+   3-operand OR chain, popcount of an AND).  Every result is held against
+   a numpy oracle; it prints solo against batched waves, ``waves_shared``,
+   ``coalesced_sense_groups`` and the p50/p99 admit->result latency read
+   from the tracer's request spans.
+5. Recovery phase: sessions with 10k-P/E wear faults and one dead
+   (plane, block) under a written pair, recovery on, under mlc and
+   reduced-mlc: Table-1 ops, a fused chain and a controller combine on
+   2**20-bit pairs.  The dead block's data cannot be read back at any
+   reference, so the ladder (retry, recalibrate, migrate) retires it and
+   raises ``BlockRetiredError``; the pair is rewritten from the host copy
+   and every result is then held against numpy.  It prints the raw bit
+   errors of the same work with recovery off, the ladder's counters, and
+   reduced-mlc's raw error rate at 10k P/E over 8 fault seeds.
+   In both phases the session's backend records the first call of each
+   kernel at each read plan, as the served pass and the ladder make them
+   (the ladder's shifted references included), and each recorded call is
+   held against its kernel's plain version on the same inputs; every
+   kernel the phase launched must have a recorded call, and the phase's
+   launch counts must be above 0 for the kernels it needs.
+6. Prints the ``kernels`` JSON line (launches summed over the three
+   paths), then a last line ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero before the last line.  Without a
 card, or without the rest of the repository beside it, it exits non-zero.
@@ -29,6 +52,7 @@ A fuller record goes to ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import subprocess
@@ -50,6 +74,11 @@ BITMAP_USERS = 2 ** 25               # 256 pages per daily bitmap
 BITMAP_DAYS = 30
 TABLE1_BITS = 2 ** 20                # 8 pages per operand
 IMAGE_BITS = 800 * 600 * 24          # one RGB image as 24 bitplanes (Fig 10)
+SERVE_COLUMNS = 32                   # 16 MLC pairs of 2**25-bit bitmaps
+SERVE_REQUESTS = 96
+FAULT_PE = 10_000
+DEAD_BLOCK = (0, 0)                  # (plane, block): under die 0's first pair
+RATE_SEEDS = 8                       # fault seeds of the raw error rate
 
 KERNELS = {
     "mlc_sense": ("src/repro_torch/csrc/mlc_sense.cu",
@@ -396,6 +425,371 @@ def main_path(device: str = "cuda", config=None, seed: int = 0) -> dict:
             "makespan_us": sess.ledger.makespan_us()}
 
 
+# -- phases 4 and 5: serving and recovery -------------------------------------
+
+def lane_major_words(bits: np.ndarray) -> np.ndarray:
+    """{0,1} bits -> uint32 words in the packed layout, in numpy: word ``w``
+    of each 4096-cell tile holds bit ``k`` from column ``k * 128 + w``."""
+    tiles = np.ascontiguousarray(bits.reshape(-1, 32, 128).transpose(0, 2, 1))
+    return np.packbits(tiles, axis=-1, bitorder="little").view("<u4").reshape(-1)
+
+
+def word_popcount(words: np.ndarray) -> int:
+    return int(np.unpackbits(words.view(np.uint8)).sum())
+
+
+#: backend method -> the kernel its call launches
+BACKEND_KERNELS = {"sense": "mlc_sense", "sense_reduce": "sense_reduce",
+                   "sense_reduce_popcount": "sense_reduce_popcount",
+                   "reduce": "bitwise_reduce", "popcount": "popcount_rows"}
+
+
+@contextlib.contextmanager
+def recording(backend):
+    """While the block runs, keep the inputs and output of the first call of
+    each kernel at each read plan that ``backend`` makes: a dict
+    ``(kernel, plan or None) -> (args, kwargs, output)``."""
+    from repro_torch.core.mcflash import ReadPlan
+
+    calls: dict = {}
+
+    def wrap(method: str, name: str):
+        real = getattr(backend, method)
+
+        def call(*args, **kwargs):
+            out = real(*args, **kwargs)
+            plan = next((a for a in args if isinstance(a, ReadPlan)), None)
+            if (name, plan) not in calls:
+                calls[name, plan] = (args, kwargs, out.clone())
+            return out
+        return call
+
+    for method, name in BACKEND_KERNELS.items():
+        setattr(backend, method, wrap(method, name))
+    try:
+        yield calls
+    finally:
+        for method in BACKEND_KERNELS:
+            delattr(backend, method)        # the class's methods again
+
+
+def hold_recorded(calls: dict) -> dict:
+    """Each recorded call's output against its kernel's plain version on the
+    same inputs.  Returns the largest word difference per kernel."""
+    from repro_torch.kernels import bitops, fused, mlc_sense, popcount
+
+    def parts(plan):
+        return list(plan.refs), plan.kind, plan.uses_inverse, len(plan.refs)
+
+    def sense(vth, plan):
+        refs, kind, inv, n = parts(plan)
+        return mlc_sense.reference(vth, refs, kind, inv, n)
+
+    def sense_reduce(vth, plan, *, op, invert=False):
+        refs, kind, inv, n = parts(plan)
+        return fused.reference(vth, refs, kind, inv, op, invert, n)
+
+    def sense_reduce_popcount(vth, plan, mask, *, op, invert=False):
+        refs, kind, inv, n = parts(plan)
+        return fused.reference_popcount(vth, refs, mask, kind, inv, op,
+                                        invert, n)
+
+    plain = {"mlc_sense": sense, "sense_reduce": sense_reduce,
+             "sense_reduce_popcount": sense_reduce_popcount,
+             "bitwise_reduce": lambda stack, op, invert=False:
+                 bitops.reference(stack, op, invert),
+             "popcount_rows": popcount.reference}
+    out: dict = {}
+    for (name, _), (args, kwargs, got) in calls.items():
+        out[name] = max(out.get(name, 0),
+                        word_err(got, plain[name](*args, **kwargs)))
+    sync()
+    return out
+
+
+def fold_errs(errs: dict, checked: dict, launches: dict, phase: str) -> None:
+    unchecked = [k for k, n in launches.items() if n and k not in checked]
+    if unchecked:
+        fail(f"{phase}: launched {unchecked} but recorded no call of them")
+    bad = {k: v for k, v in checked.items() if v}
+    if bad:
+        fail(f"{phase}: kernels disagree with their plain versions at the "
+             f"phase's shapes and references: {bad}")
+    for name, err in checked.items():
+        errs[name] = max(errs[name], err)
+
+
+def require_launches(launches: dict, names, phase: str) -> None:
+    idle = [k for k in names if launches[k] == 0]
+    if idle:
+        fail(f"{phase} never launched {idle}")
+
+
+def serve_workload(sess, gen: torch.Generator, column_bits: int):
+    """The request mix of ``benchmarks/serve_latency.py:_workload`` over 32
+    column bitmaps: returns (exprs, popcounts, oracles), the oracles as
+    numpy words (or counts)."""
+    rng = np.random.default_rng(11)
+    dies = sess.device.config.dies
+    words, vecs = {}, {}
+    for i in range(SERVE_COLUMNS // 2):
+        raw = (torch.rand(2, column_bits, generator=gen,
+                          device=sess.torch_device) < 0.5).to(torch.uint8)
+        a, b = f"col{2 * i}", f"col{2 * i + 1}"
+        vecs[a], vecs[b] = sess.write_pair(a, raw[0], b, raw[1], die=i % dies)
+        host = raw.cpu().numpy()
+        words[a], words[b] = lane_major_words(host[0]), lane_major_words(host[1])
+
+    def pick(k: int):
+        return list(rng.choice(sorted(vecs), size=k, replace=False))
+
+    exprs, pcs, oracles = [], [], []
+    for i in range(SERVE_REQUESTS):
+        kind = i % 4
+        if kind in (0, 1):
+            op = ("and", "xor")[kind]
+            a, b = pick(2)
+            exprs.append(vecs[a]._binary(op, vecs[b]))
+            oracles.append(words[a] & words[b] if op == "and"
+                           else words[a] ^ words[b])
+        elif kind == 2:
+            a, b, c = pick(3)
+            exprs.append(sess.chain("or", [vecs[a], vecs[b], vecs[c]]))
+            oracles.append(words[a] | words[b] | words[c])
+        else:
+            a, b = pick(2)
+            exprs.append(vecs[a] & vecs[b])
+            oracles.append(word_popcount(words[a] & words[b]))
+        pcs.append(kind == 3)
+    return exprs, pcs, oracles
+
+
+def serving_phase(gen: torch.Generator, errs: dict, gpu: str,
+                  device: str = "cuda", config=None,
+                  column_bits: int = BITMAP_USERS) -> dict:
+    from repro_torch.api.session import ComputeSession
+    from repro_torch.kernels import cuda
+    from repro_torch.serve import QueryEngine
+
+    t0 = time.perf_counter()
+    sess = ComputeSession(device, config=config, trace=True)
+    exprs, pcs, oracles = serve_workload(sess, gen, column_bits)
+    sync()
+    write_s = time.perf_counter() - t0
+    t = time.perf_counter()
+    solo_waves = sum(len(sess.lower(e).waves) for e in exprs)
+    lower_s = time.perf_counter() - t
+    sess.reset_stats()
+    sess.trace.clear()
+    cuda.reset_launches()
+    t = time.perf_counter()
+    eng = QueryEngine(sess)
+    tickets = []
+    with recording(sess.backend) as calls:
+        for expr, pc in zip(exprs, pcs):
+            tickets.append(eng.submit(expr, popcount=pc))
+            eng.poll()
+        results = eng.drain(tickets)
+        sync()
+    serve_s = time.perf_counter() - t
+    launches = dict(cuda.launches)
+    for ticket, got, want in zip(tickets, results, oracles):
+        if ticket.popcount:
+            if got != want:
+                fail(f"served request {ticket.rid}: count {got} != {want}")
+        elif got.dtype != np.uint32 or not np.array_equal(got, want):
+            fail(f"served request {ticket.rid}: words differ from the numpy "
+                 "oracle")
+    st = eng.stats()
+    if st["requests_completed"] != SERVE_REQUESTS:
+        fail(f"served {st['requests_completed']} of {SERVE_REQUESTS}")
+    if not (st["sense_waves"] < solo_waves and st["waves_shared"] >= 1
+            and st["coalesced_sense_groups"] >= 1):
+        fail(f"no cross-request coalescing: {st}, solo waves {solo_waves}")
+    lat = sorted(s.dur_us for s in sess.trace.wall_spans
+                 if s.category == "serve")
+    if len(lat) != SERVE_REQUESTS:
+        fail(f"{len(lat)} request spans for {SERVE_REQUESTS} requests")
+    p50 = lat[len(lat) // 2]
+    p99 = lat[min(len(lat) - 1, int(len(lat) * 0.99))]
+    checked = hold_recorded(calls)
+    del calls
+    fold_errs(errs, checked, launches, "serving")
+    require_launches(launches, ("mlc_sense", "bitwise_reduce",
+                                "popcount_rows"), "serving")
+    out = {"requests": SERVE_REQUESTS, "batches": st["batches_dispatched"],
+           "solo_waves": solo_waves, "batched_waves": st["sense_waves"],
+           "waves_shared": st["waves_shared"],
+           "coalesced_sense_groups": st["coalesced_sense_groups"],
+           "p50_ms": p50 / 1e3, "p99_ms": p99 / 1e3,
+           "write_s": write_s, "solo_lowering_s": lower_s,
+           "serve_s": serve_s, "seconds": time.perf_counter() - t0,
+           "launches": launches, "kernel_checks": sorted(checked),
+           "megakernel_calls": sess.megakernel_calls,
+           "makespan_us": sess.ledger.makespan_us()}
+    print(f"serving ({gpu}): {SERVE_REQUESTS} requests over "
+          f"{SERVE_COLUMNS} columns of {column_bits} bits in "
+          f"{out['batches']} batches, "
+          f"all bit-exact; waves solo {solo_waves} vs batched "
+          f"{out['batched_waves']}, waves_shared {out['waves_shared']}, "
+          f"coalesced_sense_groups {out['coalesced_sense_groups']}; "
+          f"admit->result p50 {out['p50_ms']:.3f} ms, p99 "
+          f"{out['p99_ms']:.3f} ms (tracer request spans); serve "
+          f"{serve_s:.2f} s, phase {out['seconds']:.2f} s; launches "
+          + json.dumps(launches), flush=True)
+    return out
+
+
+def _recovery_work(sess, raw) -> dict:
+    """Three pairs, the first (a0, b0) on die 0 over the dead block."""
+    vec = {}
+    for i in range(3):
+        vec[f"a{i}"], vec[f"b{i}"] = sess.write_pair(
+            f"a{i}", raw[2 * i], f"b{i}", raw[2 * i + 1], die=i)
+    return vec
+
+
+def _recovery_exprs(sess, vec, host):
+    """(label, expr, numpy oracle) of the phase: a fused chain under a
+    controller combine, then the Table-1 ops on the first pair."""
+    a0, b0, a1, b1, a2, b2 = (vec[k] for k in ("a0", "b0", "a1", "b1",
+                                               "a2", "b2"))
+    x, y = host[0], host[1]
+    return [
+        ("chain|xor", sess.chain("and", [a0, b0, a1, b1]) | (a2 ^ b2),
+         (x & y & host[2] & host[3]) | (host[4] ^ host[5])),
+        ("and", a0 & b0, x & y), ("or", a0 | b0, x | y),
+        ("xor", a0 ^ b0, x ^ y), ("nand", a0.nand(b0), ~(x & y)),
+        ("nor", a0.nor(b0), ~(x | y)), ("xnor", a0.xnor(b0), ~(x ^ y)),
+        ("not", ~b0, ~y),
+    ]
+
+
+def recovery_phase(gen: torch.Generator, errs: dict, gpu: str,
+                   device: str = "cuda", config=None,
+                   operand_bits: int = TABLE1_BITS) -> dict:
+    from repro_torch.api.session import ComputeSession
+    from repro_torch.core.calibration import shift_plan
+    from repro_torch.kernels import cuda
+    from repro_torch.reliability import BlockRetiredError
+
+    t0 = time.perf_counter()
+    out: dict = {"encodings": {}}
+    launches = {k: 0 for k in cuda.launches}
+    for encoding in ("mlc", "reduced-mlc"):
+        t = time.perf_counter()
+        faults = {"pe": FAULT_PE, "seed": 1, "dead_blocks": (DEAD_BLOCK,)}
+        raw = (torch.rand(6, operand_bits, generator=gen, device=device)
+               < 0.5).to(torch.uint8)
+        host = raw.cpu().numpy().astype(bool)
+        # the same writes with recovery off: the raw bit errors
+        control = ComputeSession(device, config=config, encoding=encoding,
+                                 faults=faults, recovery="off", seed=5)
+        cvec = _recovery_work(control, raw)
+        raw_errors = raw_bits = 0
+        for _, expr, want in _recovery_exprs(control, cvec, host):
+            got = host_bits(control.materialize(expr, unpacked=True))
+            raw_errors += int(np.count_nonzero(got != want))
+            raw_bits += want.size
+        del control, cvec
+
+        sess = ComputeSession(device, config=config, encoding=encoding,
+                              faults=faults, seed=5)
+        vec = _recovery_work(sess, raw)
+        if (DEAD_BLOCK + (0,)) not in sess.ftl.vectors["a0"].pages:
+            fail("the dead block holds none of the first pair's pages")
+        exprs = _recovery_exprs(sess, vec, host)
+        cuda.reset_launches()
+        with recording(sess.backend) as calls:
+            try:
+                sess.materialize(exprs[0][1])
+            except BlockRetiredError as exc:
+                retired = exc.blocks
+            else:
+                fail(f"{encoding}: data over a dead block read back clean")
+            if DEAD_BLOCK not in retired:
+                fail(f"{encoding}: retired {retired}, not the dead block")
+            detected = sess.reliability.incidents[0]["mismatches"]
+            # the data in a dead block is lost: rewrite the pair from the host
+            sess.write_pair("a0", raw[0], "b0", raw[1], die=0)
+            exprs = _recovery_exprs(sess, {k: sess[k] for k in vec}, host)
+            checks = 0
+            for label, expr, want in exprs:
+                expect(sess.materialize(expr, unpacked=True), want,
+                       f"{encoding} {label} after recovery")
+                if sess.popcount(expr) != int(want.sum()):
+                    fail(f"{encoding} {label} popcount after recovery")
+                checks += 2
+            sync()
+        phase_launches = dict(cuda.launches)
+        for k, n in phase_launches.items():
+            launches[k] += n
+        rel = sess.stats()["reliability"]
+        # the ladder's first retry shifts every reference by ``dv``
+        dv = sess.reliability.policy.ladder_offsets()[0]
+        shifted = sorted({name for name, p in calls if p is not None
+                          and (name, shift_plan(p, dv)) in calls})
+        if not shifted:
+            fail(f"recovery {encoding}: no kernel call at the ladder's "
+                 f"first offset {dv:+.3f} V was recorded")
+        checked = hold_recorded(calls)
+        del calls
+        fold_errs(errs, checked, phase_launches, f"recovery {encoding}")
+        out["encodings"][encoding] = {
+            "raw_bit_errors": raw_errors, "raw_bits": raw_bits,
+            "detected_sample_mismatches": detected,
+            "retired_blocks": [list(b) for b in retired], "checks": checks,
+            "retries": rel["retries"],
+            "recalibrations": rel["recalibrations"],
+            "migrations": rel["migrations"],
+            "retired": rel["retired_blocks"], "ref_trim": rel["ref_trim"],
+            "recovery_us": sess.ledger.category_us.get("recovery", 0.0),
+            "migration_us": sess.ledger.category_us.get("migration", 0.0),
+            "kernel_checks": sorted(checked), "shifted_checks": shifted,
+            "kernel_checks_dv": dv, "seconds": time.perf_counter() - t}
+        del sess, vec, exprs
+    require_launches(launches, ("mlc_sense", "sense_reduce", "bitwise_reduce",
+                                "popcount_rows"), "recovery")
+    out["launches"] = launches
+
+    # reduced-MLC's raw error rate at 10k P/E (no dead block, recovery off)
+    t = time.perf_counter()
+    errors = bits = 0
+    for seed in range(RATE_SEEDS):
+        sess = ComputeSession(device, config=config, encoding="reduced-mlc",
+                              recovery="off",
+                              faults={"pe": FAULT_PE, "seed": seed},
+                              seed=100 + seed)
+        raw = (torch.rand(6, operand_bits, generator=gen, device=device)
+               < 0.5).to(torch.uint8)
+        host = raw.cpu().numpy().astype(bool)
+        vec = _recovery_work(sess, raw)
+        for _, expr, want in _recovery_exprs(sess, vec, host):
+            got = host_bits(sess.materialize(expr, unpacked=True))
+            errors += int(np.count_nonzero(got != want))
+            bits += want.size
+    out["reduced_mlc_rate"] = {"seeds": RATE_SEEDS, "bit_errors": errors,
+                               "bits": bits, "rate": errors / bits,
+                               "seconds": time.perf_counter() - t}
+    out["seconds"] = time.perf_counter() - t0
+    for enc, r in out["encodings"].items():
+        print(f"recovery ({gpu}) {enc} at {FAULT_PE} P/E, dead block "
+              f"{DEAD_BLOCK}: raw bit errors with recovery off "
+              f"{r['raw_bit_errors']} of {r['raw_bits']}; detected "
+              f"{r['detected_sample_mismatches']} sampled mismatches; ladder "
+              f"retries {r['retries']}, recalibrations {r['recalibrations']}, "
+              f"migrations {r['migrations']}, retired blocks {r['retired']} "
+              f"(BlockRetiredError, pair rewritten); {r['checks']} checks "
+              f"bit-exact after recovery; {r['seconds']:.2f} s", flush=True)
+    rate = out["reduced_mlc_rate"]
+    print(f"reduced-mlc raw error rate at {FAULT_PE} P/E over {RATE_SEEDS} "
+          f"fault seeds ({gpu}): {rate['bit_errors']} bit errors in "
+          f"{rate['bits']} bits = {rate['rate']:.3e}; recovery phase "
+          f"{out['seconds']:.2f} s; launches " + json.dumps(launches),
+          flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -461,21 +855,30 @@ def main() -> int:
     print(f"bitmap index: {json.dumps(run['bitmap'])}; "
           f"{run['checks']} checks bit-exact; launches {json.dumps(launches)}",
           flush=True)
-    idle = [k for k, n in launches.items() if n == 0]
-    if idle:
-        fail(f"main path never launched {idle}")
+    require_launches(launches, KERNELS, "main path")
+    del prof
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    serve = serving_phase(gen, errs, gpu)
+    gc.collect()
+    torch.cuda.empty_cache()
+    recovery = recovery_phase(gen, errs, gpu)
+    per_path = {"main": launches, "serving": serve["launches"],
+                "recovery": recovery["launches"]}
+    total = {k: sum(p[k] for p in per_path.values()) for k in KERNELS}
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         tm = timing[name]
         kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": launches[name],
+                        "replaces": replaces, "launches": total[name],
                         "max_abs_err": errs[name], "ms": tm["ms"],
                         "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
                         "bound_by": tm["bound_by"],
                         "library_ms": tm["library_ms"]})
-    record.update(main_path=run, launches=launches, kernels=kernels,
-                  timing=timing)
+    record.update(main_path=run, launches=per_path, kernels=kernels,
+                  timing=timing, serving=serve, recovery=recovery)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))

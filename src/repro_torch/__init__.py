@@ -6,5 +6,8 @@ sense / reduce / popcount hot paths, and runs the kernels' plain PyTorch
 versions on the CPU when asked (``ComputeSession(device="cpu")``).
 
 Ported so far: the compute-session main path (``api``, ``core``, ``flash``,
-``kernels``, ``obs.metrics``).  See ROADMAP.md for what is still to come.
+``kernels``), the static plan verifier (``verify``), the span tracer and
+metrics (``obs``), the serving engine (``serve``) and the wear-fault and
+recovery layer (``reliability``, ``core.calibration``).  See ROADMAP.md for
+what is still to come.
 """

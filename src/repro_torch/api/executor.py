@@ -22,6 +22,11 @@ DAG into a static :class:`ExecPlan`, exactly as the JAX package does:
    over backend calls; building it counts as the one trace, so the
    ``misses``/``traces`` counters keep the JAX package's meaning.
 
+Every lowered plan passes the session's static verifier
+(:mod:`repro_torch.verify`) before any dispatch; with a tracer attached the
+executor records lowering, runner build and dispatch as wall-clock spans
+and runner-cache hits, misses and evictions as instants.
+
 Ledger accounting is wave-batched: each schedule wave books one parallel
 ``add_die_batch`` step plus one ``add_channel_batch`` for its transfers.
 """
@@ -37,9 +42,10 @@ from repro_torch.core import tlc as _tlc
 from repro_torch.core.mcflash import ReadPlan
 from repro_torch.flash.device import PAGE_READ_OP
 from repro_torch.obs.trace import traced
+from repro_torch.verify.invariants import check_overlap_consistency
 
 __all__ = ["ExecPlan", "Executor", "ProgramStep", "Wave",
-           "MAX_FUSED_OPERANDS"]
+           "MAX_FUSED_OPERANDS", "schedule_programs_into_idle_waves"]
 
 WordlineKey = Tuple[int, int, int]
 
@@ -217,6 +223,41 @@ class ExecPlan:
                   for w in self.waves),
             self.all_roots, self.all_root_words,
         )
+
+
+def schedule_programs_into_idle_waves(plan: ExecPlan,
+                                      steps: List[ProgramStep]) -> None:
+    """Slot migration copyback programs into the plan's wave timeline.
+
+    Each step is assigned the earliest wave whose busy dies (sense groups +
+    fused kernels dispatched that wave, plus programs already slotted
+    there) are disjoint from the step's own dies — the "idle die slot" the
+    reliability layer fills while other dies sense.  A step no wave can host
+    falls back to the pre-dispatch barrier wave ``-1`` (it serializes before
+    wave 0 instead of overlapping).  Steps are appended to ``plan.programs``
+    so the ``migration-barrier`` invariant can audit the placement.
+    """
+    busy: List[set] = []
+    for w in plan.waves:
+        dies: set = set()
+        for gi in w.groups:
+            dies.update(plan.groups[gi].dies)
+        for si in w.fused:
+            fused = plan.steps[si].fused
+            if fused is not None:
+                dies.update(fused.dies)
+        busy.append(dies)
+    for pr in plan.programs:
+        if 0 <= pr.wave < len(busy):
+            busy[pr.wave].update(pr.dies)
+    for st in steps:
+        st.wave = -1
+        for wi, dies in enumerate(busy):
+            if not dies.intersection(st.dies):
+                st.wave = wi
+                dies.update(st.dies)
+                break
+        plan.programs.append(st)
 
 
 class _Lowering:
@@ -593,13 +634,18 @@ class Executor:
         return {**self.cache.stats(), "traces": self.traces}
 
     def lower(self, node: Node) -> ExecPlan:
-        """Lower a canonical DAG to its static plan without dispatching."""
+        """Lower a canonical DAG to its static plan without dispatching;
+        the plan still passes through the session's verifier."""
         return self.lower_many([node])
 
     def lower_many(self, nodes: List[Node],
                    rids: Optional[List[int]] = None) -> ExecPlan:
-        """Batch variant of :meth:`lower`: one shared-memo lowering pass."""
-        return _Lowering(self.session).lower_many(nodes, rids)
+        """Batch variant of :meth:`lower`: one shared-memo lowering pass
+        over every DAG, verified like any dispatched plan."""
+        plan = _Lowering(self.session).lower_many(nodes, rids)
+        self.session.verify_lowered_plan(
+            plan, plan.signature(self.session.backend.name))
+        return plan
 
     def _fused_chunks(self, n_operands: int) -> int:
         """Passes a fused spec needs at ``max_fused_operands`` per pass."""
@@ -610,20 +656,45 @@ class Executor:
                       popcounts: Tuple[bool, ...],
                       rids: Optional[List[int]] = None):
         sess = self.session
-        with traced(sess.trace, "lower", "lower", roots=len(nodes)):
+        tracer = sess.trace
+        # lowering (placement resolution) runs on the host wall clock; the
+        # FTL's realignment copybacks inside it also land as device spans
+        with traced(tracer, "lower", "lower", roots=len(nodes)):
             plan = _Lowering(sess).lower_many(nodes, rids)
+        # static verification runs at lowering time, before any accounting
+        # or dispatch; memoized per signature so cache-hit plans pay ~nothing
         sig = plan.signature(sess.backend.name)
+        sess.verify_lowered_plan(plan, sig)
         self._account(plan, attributed=rids is not None)
+        if sess.verifier.enabled and sess.device.ledger.mode != "independent":
+            # transfers may overlap only LATER waves' work in the step log
+            check_overlap_consistency(sess.device.ledger, plan=plan)
         key = (self.max_fused_operands, sig, popcounts)
-        fn = self.cache.get(key, lambda: self._build(plan, popcounts))
+        if tracer is not None:
+            tracer.instant("cache", "executable-hit" if key in self.cache
+                           else "executable-miss",
+                           waves=len(plan.waves), groups=len(plan.groups))
+            evictions0 = self.cache.evictions
+
+        def build():
+            with traced(tracer, "compile", "build-executable",
+                        waves=len(plan.waves)):
+                return self._build(plan, popcounts)
+
+        fn = self.cache.get(key, build)
+        if tracer is not None and self.cache.evictions > evictions0:
+            tracer.instant("cache", "executable-evicted",
+                           evicted=self.cache.evictions - evictions0)
         dev = sess.device
         # the shard gathers run outside the cached runner, one per die shard
-        group_vth = tuple(dev.vth_stack(g.wls) for g in plan.groups)
-        fused_vth = tuple(dev.vth_stack(st.fused.wls)
-                          for st in plan.steps if st.fused is not None)
-        masks = tuple(sess.tail_mask(nb, w) for nb, w
-                      in zip(n_bits_list, plan.all_root_words))
-        return fn(group_vth, fused_vth, masks)
+        with traced(tracer, "dispatch", "dispatch-waves",
+                    waves=len(plan.waves)):
+            group_vth = tuple(dev.vth_stack(g.wls) for g in plan.groups)
+            fused_vth = tuple(dev.vth_stack(st.fused.wls)
+                              for st in plan.steps if st.fused is not None)
+            masks = tuple(sess.tail_mask(nb, w) for nb, w
+                          in zip(n_bits_list, plan.all_root_words))
+            return fn(group_vth, fused_vth, masks)
 
     def _account(self, plan: ExecPlan, attributed: bool = False) -> None:
         """Wave-batched ledger + counter updates: ONE parallel die step and
@@ -632,6 +703,7 @@ class Executor:
         with its wave composition."""
         sess = self.session
         dev = sess.device
+        tracer = sess.trace
         # group wave tags: wave indices restart per plan, so the step log
         # compares them only within one epoch
         dev.ledger.begin_epoch()
@@ -669,6 +741,11 @@ class Executor:
                 n_fused += 1
                 n_chunks += self._fused_chunks(f.n_operands)
                 sess.metrics.histogram("fused_operands").observe(f.n_operands)
+                if (tracer is not None
+                        and f.n_operands > self.max_fused_operands):
+                    tracer.instant("dispatch", "tiled-megakernel-split",
+                                   operands=f.n_operands,
+                                   passes=self._fused_chunks(f.n_operands))
             for unit_die, unit_uj, wls in units:
                 for die, us in unit_die.items():
                     per_die[die] = per_die.get(die, 0.0) + us

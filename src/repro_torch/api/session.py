@@ -15,15 +15,21 @@ backend launches the hand-written kernels (``stats()["backend"]`` is
 ``"cuda"``), and raises when there is no card.  ``device="cpu"`` runs the
 kernels' plain versions (backend ``"sim"``).
 
-Not ported yet, and raising ``NotImplementedError`` when asked for: plan
-verification (``verify=`` other than ``"off"``, ROADMAP queue 1 item 6),
-fault injection and recovery (``faults=`` / ``recovery=``, item 7), span
-tracing (``trace=``, item 4) and several shard devices (item 3).
+Its defaults are the JAX package's: every lowered plan passes the static
+verifier (``verify=None`` reads ``$REPRO_VERIFY``, falling back to
+``"on"``), and ``faults=None`` reads ``$REPRO_FAULTS``.  ``trace=`` attaches
+a :class:`~repro_torch.obs.Tracer`; ``faults=`` / ``recovery=`` install the
+wear model and the checkword-verified recovery ladder
+(:mod:`repro_torch.reliability`).  :meth:`materialize_batch` and
+:meth:`materialize_batch_async` lower many expressions in one pass, the
+dispatch of :class:`repro_torch.serve.QueryEngine`.
 """
 from __future__ import annotations
 
+import dataclasses
+import os
 from collections import OrderedDict
-from typing import Iterable, List, Tuple
+from typing import Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -38,6 +44,9 @@ from repro_torch.core.mcflash import ReadPlan
 from repro_torch.core.vth_model import ChipModel
 from repro_torch.kernels import ref as kernel_ref
 from repro_torch.obs.metrics import MetricsRegistry
+from repro_torch.obs.trace import Tracer
+from repro_torch.reliability import FaultConfig, FaultModel
+from repro_torch.verify import PlanContext, PlanVerifier
 
 __all__ = ["ComputeSession", "resolve_device"]
 
@@ -71,11 +80,6 @@ def resolve_device(device: "torch.device | str | None") -> torch.device:
     return dev
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1 "
-                               f"{item})")
-
-
 class ComputeSession:
     """Session-level MCFlash compute over named bit-vector handles.
 
@@ -86,19 +90,14 @@ class ComputeSession:
 
     def __init__(self, device: "torch.device | str | None" = None, *,
                  flash=None, ftl=None, chip=None, config=None, timing=None, energy=None,
-                 seed: int = 0, encoding: str = tlc.MLC, trace: bool = False,
-                 verify: "str | None" = "off", faults=None, recovery=None,
+                 seed: int = 0, encoding: str = tlc.MLC,
+                 trace: "bool | Tracer" = False,
+                 verify: "str | None" = None, faults=None, recovery=None,
                  overlap: "bool | str | None" = None,
                  drain_depth: "int | None" = None):
         from repro_torch.flash.device import FlashDevice
         from repro_torch.flash.ftl import FTL
 
-        if verify not in (None, "off"):
-            raise _not_ported("plan verification (verify=)", "item 6")
-        if faults is not None or recovery is not None:
-            raise _not_ported("fault injection and recovery", "item 7")
-        if trace:
-            raise _not_ported("span tracing (trace=)", "item 4")
         if encoding not in tlc.ENCODINGS:
             raise ValueError(f"unknown encoding {encoding!r}; "
                              f"pick one of {tlc.ENCODINGS}")
@@ -125,6 +124,9 @@ class ComputeSession:
                                       **build_kwargs)
         self.torch_device = self.device.device
         self.ftl = ftl or getattr(self.device, "ftl", None) or FTL(self.device)
+        # the FTL's checked reads (realignment under faults) follow this
+        # session's reliability manager; the latest session wins
+        self.ftl._session = self
         self.backend: Backend = self.device.backend
         self.plans: PlanCache = self.device.plans     # shared per-chip plan cache
         self.ledger = self.device.ledger
@@ -144,6 +146,11 @@ class ComputeSession:
                     f"'independent', got {overlap!r}")
             self.ledger.set_mode(mode, drain_depth=drain_depth)
         self.executor = Executor(self)
+        #: static ExecPlan verifier (``"off"`` | ``"on"`` | ``"paranoid"``),
+        #: run at lowering time and memoized by plan signature
+        self.verifier = PlanVerifier(
+            verify if verify is not None
+            else os.environ.get("REPRO_VERIFY", "on"))
         self.metrics = MetricsRegistry()
         for name, desc in _SESSION_COUNTERS:
             self.metrics.counter(name, desc)
@@ -156,10 +163,31 @@ class ComputeSession:
             depth=self.ledger.drain_depth,
             on_submit=self._on_drain_submit,
             on_block=lambda: self.metrics.counter("host_drain_blocks").add(1))
-        #: span tracer (not ported yet: always None)
-        self.trace = None
+        #: device-timeline tracer (``trace=True`` builds one, or pass a
+        #: :class:`Tracer`); it attaches to the device ledger, so every
+        #: command this session triggers lands on its lanes.  The latest
+        #: traced session on a shared device wins.
+        self.trace: "Tracer | None" = None
+        if trace:
+            self.trace = trace if isinstance(trace, Tracer) else Tracer()
+            self.ledger.tracer = self.trace
         self._tail_masks: "OrderedDict[Tuple[int, int], torch.Tensor]" = \
             OrderedDict()
+        #: wear fault injection (``faults=`` or ``$REPRO_FAULTS``, any spec
+        #: :meth:`FaultConfig.parse` accepts) and recovery: ``recovery=None``
+        #: turns the ladder on when the device has a fault model, ``"off"``
+        #: keeps it off under faults, and a dict / :class:`RetryPolicy` /
+        #: ``True`` turns it on with that policy
+        fault_cfg = FaultConfig.parse(
+            faults if faults is not None else os.environ.get("REPRO_FAULTS"))
+        if fault_cfg is not None:
+            self.device.faults = FaultModel(fault_cfg)
+        self.reliability = None
+        if recovery != "off" and (recovery is not None
+                                  or self.device.faults is not None):
+            from repro_torch.reliability.recovery import ReliabilityManager
+            self.reliability = ReliabilityManager(
+                self, None if recovery in (None, True, "on") else recovery)
 
     # -- registration --------------------------------------------------------
     def _bits(self, bits) -> torch.Tensor:
@@ -233,9 +261,25 @@ class ComputeSession:
         return [self.plan(op).describe() for op in ops]
 
     # -- execution -----------------------------------------------------------
+    def plan_context(self) -> PlanContext:
+        """Device/session geometry the static plan verifier checks against."""
+        return PlanContext(
+            die_of_plane=self.device.die_of_plane,
+            page_words=self.ftl.cfg.page_bits // 32,
+            max_fused_operands=self.executor.max_fused_operands)
+
+    def verify_lowered_plan(self, plan: ExecPlan,
+                            signature: "tuple | None" = None) -> None:
+        """Hook the executor calls on every freshly lowered plan; raises
+        :class:`repro_torch.verify.PlanInvariantError` before any dispatch
+        when a schedule invariant is violated.  No-op with
+        ``verify="off"``."""
+        if self.verifier.enabled:
+            self.verifier.verify(plan, self.plan_context(), signature)
+
     def lower(self, expr: BitVector) -> ExecPlan:
         """Canonicalize + lower ``expr`` to its static :class:`ExecPlan`
-        without dispatching."""
+        without dispatching (the plan is still verified)."""
         return self.executor.lower(simplify(expr.node))
 
     def materialize(self, expr: BitVector, *, unpacked: bool = False,
@@ -248,11 +292,19 @@ class ComputeSession:
         uint8 bits trimmed to ``expr.n_bits``.  ``to_host`` books the final
         controller->host transfer in the ledger.
         """
-        packed = self.executor.run(simplify(expr.node), expr.n_bits)
+        packed = self._checked_words(simplify(expr.node), expr.n_bits)
         if to_host:
             self.device.ext_to_host(int(packed.shape[-1]) * 4)
         if unpacked:
             return kernel_ref.unpack_bits(packed.reshape(1, -1))[0][: expr.n_bits]
+        return packed
+
+    def _checked_words(self, node, n_bits: int) -> torch.Tensor:
+        """Packed words of a canonical DAG, checkword-verified (and
+        recovered) when the reliability layer is on."""
+        packed = self.executor.run(node, n_bits)
+        if self.reliability is not None:
+            packed = self.reliability.verify_and_recover(node, n_bits, packed)
         return packed
 
     def _on_drain_submit(self, n_bytes: int) -> None:
@@ -263,12 +315,87 @@ class ComputeSession:
         """Like :meth:`materialize`, but stream the packed result to the host
         through the bounded drain queue; ``handle.result()`` (or
         :meth:`drain`) returns it as a numpy uint32 array."""
-        packed = self.executor.run(simplify(expr.node), expr.n_bits)
+        packed = self._checked_words(simplify(expr.node), expr.n_bits)
         return self.host_queue.submit(packed, int(packed.shape[-1]) * 4)
 
     def drain(self) -> List[np.ndarray]:
         """Resolve every in-flight :meth:`materialize_async` transfer."""
         return [h.result() for h in self.host_queue.drain()]
+
+    # -- cross-request batch execution (the serving engine's dispatch) -------
+    def lower_batch(self, exprs: Sequence[BitVector],
+                    rids: "Optional[Sequence[int]]" = None) -> ExecPlan:
+        """Lower a batch of expressions through ONE shared pass without
+        dispatching: identical sub-DAGs dedupe and same-(ReadPlan, die)
+        senses coalesce into shared groups/waves.  ``rids`` tags the plan's
+        sense items with owning request ids (trace/metrics attribution)."""
+        return self.executor.lower_many(
+            [simplify(e.node) for e in exprs],
+            list(rids) if rids is not None else None)
+
+    def _run_batch(self, exprs: Sequence[BitVector],
+                   popcounts: Tuple[bool, ...],
+                   rids: "Optional[Sequence[int]]" = None
+                   ) -> List[torch.Tensor]:
+        """One coalesced executor run; under the reliability layer every
+        root materializes as words first (the fused on-device popcount would
+        hide bit errors), is verified/recovered per root, and counts fold
+        afterwards."""
+        nodes = [simplify(e.node) for e in exprs]
+        n_bits = [e.n_bits for e in exprs]
+        rid_list = list(rids) if rids is not None else None
+        if self.reliability is not None:
+            outs = self.executor.run_batch(nodes, n_bits,
+                                           (False,) * len(nodes),
+                                           rids=rid_list)
+            fixed: List[torch.Tensor] = []
+            for node, nb, pc, packed in zip(nodes, n_bits, popcounts, outs):
+                packed = self.reliability.verify_and_recover(node, nb, packed)
+                fixed.append(self.backend.popcount(packed.reshape(1, -1))[0]
+                             if pc else packed)
+            return fixed
+        return self.executor.run_batch(nodes, n_bits, popcounts,
+                                       rids=rid_list)
+
+    @staticmethod
+    def _popcount_flags(exprs, popcount) -> Tuple[bool, ...]:
+        flags = (tuple(bool(p) for p in popcount) if popcount is not None
+                 else (False,) * len(exprs))
+        if len(flags) != len(exprs):
+            raise ValueError(f"{len(flags)} popcount flags for "
+                             f"{len(exprs)} expressions")
+        return flags
+
+    def materialize_batch(self, exprs: Sequence[BitVector], *,
+                          popcount: "Optional[Sequence[bool]]" = None,
+                          rids: "Optional[Sequence[int]]" = None,
+                          to_host: bool = True) -> List:
+        """Materialize N expressions through ONE coalesced lowering and
+        dispatch: returns one packed word tensor, or ``int`` count where
+        ``popcount[i]``, per expression, in order.  Bit-exact against
+        materializing each expression on its own."""
+        popcounts = self._popcount_flags(exprs, popcount)
+        outs = self._run_batch(exprs, popcounts, rids)
+        results: List = []
+        for out, pc in zip(outs, popcounts):
+            if to_host:
+                self.device.ext_to_host(4 if pc else int(out.shape[-1]) * 4)
+            results.append(int(out) if pc else out)
+        return results
+
+    def materialize_batch_async(self, exprs: Sequence[BitVector], *,
+                                popcount: "Optional[Sequence[bool]]" = None,
+                                rids: "Optional[Sequence[int]]" = None
+                                ) -> List[DrainHandle]:
+        """Batch variant of :meth:`materialize_async`: one coalesced
+        dispatch, then every root's result streams host-ward through the
+        bounded drain queue, one rid-tagged :class:`DrainHandle` per
+        expression, in order."""
+        popcounts = self._popcount_flags(exprs, popcount)
+        outs = self._run_batch(exprs, popcounts, rids)
+        rid_list = list(rids) if rids is not None else [None] * len(exprs)
+        return [self.host_queue.submit(out, rid=rid)
+                for out, rid in zip(outs, rid_list)]
 
     def tail_mask(self, n_bits: int, total_words: int) -> torch.Tensor:
         """Packed (total_words,) mask zeroing page-padding bits past
@@ -298,7 +425,14 @@ class ComputeSession:
         """Materialize + bit-count on the device; the count fuses into the
         root kernel when the plan allows, and only the 4-byte count crosses
         to the host."""
-        count = self.executor.run_popcount(simplify(expr.node), expr.n_bits)
+        node = simplify(expr.node)
+        if self.reliability is not None:
+            # words must exist to checkword-verify; the count then folds
+            # afterwards (the fused popcount would hide bit errors)
+            packed = self._checked_words(node, expr.n_bits)
+            count = self.backend.popcount(packed.reshape(1, -1))[0]
+        else:
+            count = self.executor.run_popcount(node, expr.n_bits)
         if to_host:
             self.device.ext_to_host(4)
         return int(count)
@@ -328,16 +462,27 @@ class ComputeSession:
             "tail_mask_cache": {"size": len(self._tail_masks),
                                 "cap": TAIL_MASK_CACHE_CAP,
                                 "evictions": self.tail_mask_evictions},
-            "verify": {"mode": "off"},
+            "plans_verified": self.verifier.plans_verified,
+            "verify_cache_hits": self.verifier.cache_hits,
+            "verify": {"mode": self.verifier.mode,
+                       "time_us": self.verifier.time_us},
             "arena_shards": self.device.arena.n_shards,
             "ledger": self.ledger.summary(),
+            "faults": (dataclasses.asdict(self.device.faults.cfg)
+                       if self.device.faults is not None else None),
+            "reliability": (self.reliability.stats()
+                            if self.reliability is not None else None),
         }
 
     def reset_stats(self, include_ledger: bool = True) -> None:
         """Zero this session's metrics (and, by default, the shared ledger).
-        Device-shared cache counters are left alone."""
+        Device-shared cache counters are left alone, and an attached tracer
+        keeps its spans (``sess.trace.clear()`` drops them)."""
         self.metrics.reset()
+        self.verifier.reset()
         self.host_queue.reset()
+        if self.reliability is not None:
+            self.reliability.reset()
         if include_ledger:
             self.ledger.reset()
 

@@ -64,3 +64,17 @@ class WearTracker:
             "max_rber_pct": max(
                 (h.rber_pct for h in self._blocks.values()), default=0.0),
         }
+
+    def histogram(self, edges=(0.0, 0.01, 0.05, 0.1, 0.5, 1.0, 5.0)) -> dict:
+        """Bucketed observed-RBER histogram for stats()/trace export."""
+        counts = [0] * (len(edges))
+        for h in self._blocks.values():
+            placed = False
+            for i in range(len(edges) - 1, -1, -1):
+                if h.rber_pct >= edges[i]:
+                    counts[i] += 1
+                    placed = True
+                    break
+            if not placed:
+                counts[0] += 1
+        return {f">={edges[i]:g}%": counts[i] for i in range(len(edges))}

@@ -144,3 +144,15 @@ def program_page(gen: torch.Generator, lsb_bits: torch.Tensor,
     vth = apply_wear(gen, vth, states, chip, n_pe, retention_hours)
     return vth, states
 
+
+def pe_wear_scale(n_pe: float, pe_ref: float = 10_000.0) -> float:
+    """Normalized sub-log wear severity in [0, 1] at ``pe_ref`` P/E cycles.
+
+    Same 1/1500-cycle knee as :func:`drift_terms`'s cycling term, normalized
+    so the reliability layer's fault magnitudes are a fraction of their
+    10k-P/E value: s(1k) ~= 0.25, s(5k) ~= 0.72, s(10k) == 1.0.
+    """
+    n_pe = float(n_pe)
+    if n_pe <= 0:
+        return 0.0
+    return math.log1p(n_pe / 1500.0) / math.log1p(pe_ref / 1500.0)

@@ -33,8 +33,8 @@ SlotRef = Tuple[int, int]
 class VthArena:
     """Preallocated (slots, page_bits) float32 Vth storage with a free list."""
 
-    def __init__(self, page_bits: int, init_slots: int = 16,
-                 device: "torch.device | str" = "cpu"):
+    def __init__(self, page_bits: int, init_slots: int = 16, *,
+                 device: "torch.device | str"):
         self.page_bits = int(page_bits)
         self.device = torch.device(device)
         self._buf = torch.zeros((max(int(init_slots), 1), self.page_bits),
@@ -133,7 +133,7 @@ class ShardedVthArena:
     """
 
     def __init__(self, page_bits: int, n_dies: int = 1, init_slots: int = 16,
-                 device: "torch.device | str" = "cpu"):
+                 *, device: "torch.device | str"):
         if n_dies < 1:
             raise ValueError(n_dies)
         self.page_bits = int(page_bits)
@@ -150,7 +150,7 @@ class ShardedVthArena:
         arena = self._shards.get(die)
         if arena is None:
             arena = self._shards[die] = VthArena(
-                self.page_bits, self.init_slots, self.device)
+                self.page_bits, self.init_slots, device=self.device)
         return arena
 
     @property

@@ -85,6 +85,10 @@ class FlashDevice:
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(int(seed))
         self.ftl = None                # first-bound FTL registers itself here
+        #: optional :class:`repro_torch.reliability.FaultModel`: when
+        #: installed (``ComputeSession(faults=...)`` / ``REPRO_FAULTS``)
+        #: every program perturbs its Vth rows per the seeded wear model
+        self.faults = None
         #: when set (by the executor's lowering pass) every shared-page
         #: program appends ``(label, wls)`` here
         self.program_log: "list | None" = None
@@ -122,6 +126,19 @@ class FlashDevice:
         states, both through the 8-state chip.  Vth is drawn per page, the
         arena write is one update per shard and the ledger entry one call.
         """
+        self._program_rows(wls, lsb_pages, msb_pages, retention_hours,
+                           csb_pages=csb_pages, encoding=encoding)
+        if wls:
+            self._book_program(wls, encoding)
+
+    def _program_rows(self, wls: List[WordlineKey],
+                      lsb_pages: List[torch.Tensor],
+                      msb_pages: List[torch.Tensor],
+                      retention_hours: float = 0.0, *,
+                      csb_pages: "List[torch.Tensor] | None" = None,
+                      encoding: str = tlc.MLC) -> None:
+        """Draw the Vth rows of a wordline batch (one draw per page, in
+        order) and write them to the arena; books nothing."""
         if encoding not in tlc.ENCODINGS:
             raise ValueError(encoding)
         if encoding == tlc.TLC:
@@ -154,6 +171,9 @@ class FlashDevice:
                 states = tlc.encode_states(encoding, pages)
                 vth = tlc.program_tlc(self._gen, states, self.tlc_chip,
                                       n_pe=float(n_pe))
+            if self.faults is not None:
+                vth = self.faults.perturb(vth, plane=plane, block=block,
+                                          wl=wl[2], n_pe=n_pe)
             vths.append(vth)
         slots = []
         for wl in wls:
@@ -168,6 +188,10 @@ class FlashDevice:
                 self.arena.retag(slot, encoding)
             slots.append(slot)
         self.arena.write(slots, torch.stack(vths))
+
+    def _book_program(self, wls: List[WordlineKey], encoding: str) -> None:
+        """Ledger entry (and lowering-time program log) of one shared-page
+        program command over ``wls``."""
         # shared-page program: one page's worth of ISPP per shared page
         n_pages = PAGES_PER_WL[encoding]
         per_die: Dict[int, float] = {}
@@ -296,14 +320,33 @@ class FlashDevice:
         out = self.page_read_batch([wl], which, encoding=encoding)
         return out[0] if packed else kernel_ref.unpack_bits(out)[0]
 
-    def copyback_align(self, src_a: WordlineKey, src_b: WordlineKey,
-                       dst: WordlineKey, which_a: str = "lsb",
-                       which_b: str = "lsb") -> None:
-        """Realign two scattered operands onto one shared wordline (Fig 9e):
-        two page reads + one shared-page copyback program, on die."""
-        a = self.page_read(src_a, which_a, packed=False)
-        b = self.page_read(src_b, which_b, packed=False)
-        self.program_shared(dst, a, b)
+    def copyback_align(self, srcs_a: List[WordlineKey],
+                       srcs_b: List[WordlineKey], dsts: List[WordlineKey],
+                       which_a: str = "lsb", which_b: str = "lsb") -> None:
+        """Realign scattered operand pages onto shared wordlines (Fig 9e):
+        for each ``(src_a, src_b, dst)``, two page reads and one shared-page
+        copyback program, on die.  The reads of the whole run sense in one
+        call per role and the programs write the arena once; the ledger
+        books every command per wordline, in the order one wordline at a
+        time would (read a, read b, program).  ``dsts`` are fresh
+        wordlines, so no program changes a row a later read senses."""
+        if not len(srcs_a) == len(srcs_b) == len(dsts):
+            raise ValueError("one source pair per destination wordline")
+        if not dsts:
+            return
+        plan_a = self.page_read_plan(which_a)
+        plan_b = self.page_read_plan(which_b)
+        bits_a = kernel_ref.unpack_bits(
+            self.backend.sense(self.vth_stack(srcs_a), plan_a))
+        bits_b = kernel_ref.unpack_bits(
+            self.backend.sense(self.vth_stack(srcs_b), plan_b))
+        self._program_rows(dsts, list(bits_a), list(bits_b))
+        for wa, wb, dst in zip(srcs_a, srcs_b, dsts):
+            self.account_page_read_batch([wa], which_a,
+                                         phases=plan_a.sensing_phases)
+            self.account_page_read_batch([wb], which_b,
+                                         phases=plan_b.sensing_phases)
+            self._book_program([dst], tlc.MLC)
 
     def erase_block(self, plane: int, block: int) -> None:
         self.pe_counts[(plane, block)] = self.pe_counts.get((plane, block), 0) + 1

@@ -65,6 +65,9 @@ class FTL:
         #: name -> ordered tuple of ALL names co-located on its wordlines
         self._group_of: Dict[str, Tuple[str, ...]] = {}
         self._next_die = 0                               # round-robin home die
+        #: the session whose reliability manager checks this FTL's reads
+        #: (set by ``ComputeSession``; the latest session wins)
+        self._session = None
 
     @property
     def _tracer(self):
@@ -81,6 +84,11 @@ class FTL:
             block, wl = block + 1, 0
         self._next_wl[plane] = (block, wl)
         return key
+
+    def vectors_in_block(self, plane: int, block: int) -> List[str]:
+        """Registered vectors with at least one page in (plane, block)."""
+        return [m.name for m in self.vectors.values()
+                if any(p == plane and b == block for p, b, _ in m.pages)]
 
     def retire_block(self, plane: int, block: int) -> None:
         """Mark a block bad: the allocator skips it from now on."""
@@ -134,8 +142,12 @@ class FTL:
 
     def _checkword(self, bits: torch.Tensor, n_bits: int) -> np.ndarray:
         """Sampled-parity checkword of a vector being written: only the
-        sampled bits cross to the host."""
-        pos = checkwords.sample_positions(n_bits, checkwords.DEFAULT_SAMPLES)
+        sampled bits cross to the host.  The sample count follows the
+        session's retry policy when recovery is on."""
+        mgr = getattr(self._session, "reliability", None)
+        n_samples = (mgr.policy.check_samples if mgr is not None
+                     else checkwords.DEFAULT_SAMPLES)
+        pos = checkwords.sample_positions(n_bits, n_samples)
         idx = torch.tensor(pos, dtype=torch.long, device=bits.device)
         return bits.reshape(-1)[idx].to(torch.uint8).cpu().numpy()
 
@@ -235,13 +247,11 @@ class FTL:
             raise ValueError("aligned operands must match in size")
         self._invalidate(name_a)
         self._invalidate(name_b)
-        placement = []
         with traced(self._tracer, "ftl", f"copyback-align[{name_a},{name_b}]",
                     pages=len(ma.pages)):
-            for wa, wb in zip(ma.pages, mb.pages):
-                dst = self.allocate_wordline(wa[0])
-                self.device.copyback_align(wa, wb, dst, ma.role, mb.role)
-                placement.append(dst)
+            placement = [self.allocate_wordline(wa[0]) for wa in ma.pages]
+            self.device.copyback_align(ma.pages, mb.pages, placement,
+                                       ma.role, mb.role)
         # the copyback preserves data, so the checkwords carry over
         self.vectors[name_a] = VectorMeta(name_a, ma.n_bits, placement, "lsb",
                                           die=ma.die, check=ma.check)
@@ -262,10 +272,17 @@ class FTL:
         if enc == tlc.MLC and len(names) == 2:
             self.align(names[0], names[1])
             return
+        # under fault injection a factory-reference readout would copy
+        # corrupted bits into the new placement AND recompute matching
+        # checkwords; with recovery on, each vector reads back checked
+        mgr = getattr(self._session, "reliability", None)
         with traced(self._tracer, "ftl",
                     f"align-group[{','.join(names)}]", encoding=enc):
             bits = []
             for m in metas:
+                if mgr is not None:
+                    bits.append(mgr.read_vector_checked(m))
+                    continue
                 packed = self.device.page_read_batch(m.pages, m.role,
                                                      encoding=enc)
                 bits.append(kernel_ref.unpack_bits(

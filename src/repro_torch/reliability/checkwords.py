@@ -65,15 +65,27 @@ def words_per_page(page_bits: int) -> int:
     return tiles * LANES
 
 
-def sample_packed(packed, positions: np.ndarray, page_bits: int) -> np.ndarray:
-    """Sample a packed uint32 result (one or more pages, row-major) at the
-    same bit ``positions`` without unpacking the whole vector."""
-    w = np.asarray(packed).reshape(-1)
+def _packed_index(positions: np.ndarray, page_bits: int):
+    """(word, bit) of each bit position in the packed layout (one or more
+    pages, row-major)."""
     wpp = words_per_page(page_bits)
     page, c_page = np.divmod(positions, int(page_bits))
     tile, c = np.divmod(c_page, TILE_COLS)
     word = page * wpp + tile * LANES + (c % LANES)
-    bit = c // LANES
+    return word, (c // LANES).astype(np.uint32)
+
+
+def sample_index(n_bits: int, n_samples: int, page_bits: int):
+    """(word, bit) of :func:`sample_positions` ``(n_bits, n_samples)`` in
+    the packed layout of ``page_bits`` pages."""
+    return _packed_index(sample_positions(n_bits, n_samples), page_bits)
+
+
+def sample_packed(packed, positions: np.ndarray, page_bits: int) -> np.ndarray:
+    """Sample a packed uint32 result (one or more pages, row-major) at the
+    same bit ``positions`` without unpacking the whole vector."""
+    w = np.asarray(packed).reshape(-1)
+    word, bit = _packed_index(positions, page_bits)
     return ((w[word] >> bit) & 1).astype(np.uint8)
 
 

@@ -14,6 +14,7 @@ import torch
 from repro_torch.api.session import ComputeSession
 from repro_torch.flash.geometry import SSDConfig
 from repro_torch.kernels import bitops, cuda, fused, mlc_sense, popcount
+from repro_torch.serve import QueryEngine, SLOConfig
 
 KIND_CASES = ([("lsb", [1.9]), ("msb", [0.1, 3.7]), ("sbr", [0.1, 3.7, 1.9, 5.5])]
               + [("parity", [-1.0 + 0.7 * i for i in range(n)]) for n in range(1, 9)])
@@ -87,3 +88,91 @@ def test_session_on_the_card_launches_every_kernel(card):
     np.testing.assert_array_equal(got, (b[0] & b[1]) | (b[2] ^ b[3]))
     assert sess.popcount(v[4] & v[5]) == int((b[4] & b[5]).sum())
     assert all(count > 0 for count in cuda.launches.values()), cuda.launches
+
+
+
+def _card_rows(sess):
+    """The card session's Vth rows per die, for a CPU twin's ``load_vth``."""
+    return {die: shard.buf.cpu().numpy()
+            for die, shard in sess.device.arena._shards.items()}
+
+
+@pytest.mark.gpu
+def test_served_batch_matches_plain_versions(card):
+    """A QueryEngine batch on the card (pair ops, a 3-operand OR chain, a
+    popcount) equals the same batch on the CPU over the same Vth rows, word
+    for word, with the same coalescing counters, and goes through the
+    sense, combine and popcount kernels."""
+    rng = np.random.default_rng(1)
+    n = 2 * 8192 + 33
+    raw = [(rng.random(n) < 0.5).astype(np.uint8) for _ in range(8)]
+    cfg = SSDConfig(channels=1, dies_per_channel=4, page_kb=1)
+    sess = ComputeSession(config=cfg, trace=True)
+    twin = ComputeSession(device="cpu", config=cfg, trace=True)
+    outs, stats = [], []
+    for s in (sess, twin):
+        v = []
+        for i in range(0, 8, 2):
+            v.extend(s.write_pair(f"c{i}", raw[i], f"c{i + 1}", raw[i + 1],
+                                  die=i // 2))
+        if s is twin:
+            twin.device.load_vth(_card_rows(sess))
+        cuda.reset_launches()
+        eng = QueryEngine(s, SLOConfig(max_batch_requests=4))
+        tickets = [eng.submit(v[0] & v[1]), eng.submit(v[2] ^ v[3]),
+                   eng.submit(s.chain("or", [v[0], v[1], v[4]])),
+                   eng.submit(v[6] & v[7], popcount=True),
+                   eng.submit(v[0] & v[1])]
+        outs.append(eng.drain(tickets))
+        stats.append((eng.stats(), dict(cuda.launches)))
+    b = [r.astype(bool) for r in raw]
+    assert outs[0][3] == outs[1][3] == int((b[6] & b[7]).sum())
+    for got, want in zip(outs[0][:3] + outs[0][4:], outs[1][:3] + outs[1][4:]):
+        np.testing.assert_array_equal(got, want)
+    (card_stats, launches), (cpu_stats, cpu_launches) = stats
+    assert card_stats == cpu_stats and card_stats["waves_shared"] >= 1
+    for kernel in ("mlc_sense", "bitwise_reduce", "popcount_rows"):
+        assert launches[kernel] > 0, launches
+    assert not any(cpu_launches.values())
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_shifted_reference_recovery_matches_plain_versions(card):
+    """TLC at 5k P/E: the retry ladder re-senses at shifted references on
+    the card (sense groups, a fused chain, a controller combine); on the
+    CPU over the same perturbed rows it takes the same steps to the same
+    words."""
+    rng = np.random.default_rng(2)
+    n = 2 * 8192
+    raw = [(rng.random(n) < 0.5).astype(np.uint8) for _ in range(4)]
+    cfg = SSDConfig(channels=1, dies_per_channel=2, page_kb=1)
+    faults = {"pe": 5000, "seed": 9}
+    sess = ComputeSession(config=cfg, encoding="tlc", faults=faults)
+    twin = ComputeSession(device="cpu", config=cfg, encoding="tlc",
+                          faults=faults)
+    results = []
+    for s in (sess, twin):
+        a, b = s.write_pair("a", raw[0], "b", raw[1])
+        c, d = s.write_pair("c", raw[2], "d", raw[3])
+        if s is twin:
+            twin.device.load_vth(_card_rows(sess))
+        cuda.reset_launches()
+        words = [s.materialize(e).cpu().numpy() for e in
+                 (a ^ b, s.chain("xor", [a, b, c, d]), (a & b) | (c ^ d))]
+        results.append((words, s.reliability.incidents,
+                        s.ledger.category_us, dict(cuda.launches)))
+    (words, incidents, cats, launches), (cpu_words, cpu_inc, cpu_cats, _) = \
+        results
+    for got, want in zip(words, cpu_words):
+        np.testing.assert_array_equal(got, want)
+    assert incidents == cpu_inc and len(incidents) == 3
+    assert all(inc["offset"] for inc in incidents)
+    assert cats == cpu_cats and cats["recovery"] > 0
+    for kernel in ("mlc_sense", "sense_reduce", "bitwise_reduce"):
+        assert launches[kernel] > 0, launches
+    b = [r.astype(bool) for r in raw]
+    got = sess.materialize((sess["a"] & sess["b"]) | (sess["c"] ^ sess["d"]),
+                           unpacked=True).cpu().numpy().astype(bool)
+    np.testing.assert_array_equal(got, (b[0] & b[1]) | (b[2] ^ b[3]))
+    torch.cuda.synchronize()

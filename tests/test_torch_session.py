@@ -190,8 +190,8 @@ def test_randomized_dags_match_oracle(seed):
 
 def test_port_boundaries():
     """Async drains return uint32 words; no card and no ``device="cpu"``
-    raises; options not ported yet raise; the port imports neither JAX nor
-    the JAX package."""
+    raises; verification, faults, recovery and tracing take the JAX
+    package's options; the port imports neither JAX nor the JAX package."""
     port = ComputeSession(device="cpu", config=SSDConfig(
         channels=1, dies_per_channel=2, page_kb=1), drain_depth=1)
     rng = np.random.default_rng(5)
@@ -213,10 +213,12 @@ def test_port_boundaries():
             ComputeSession()
         with pytest.raises(RuntimeError, match="no CUDA device"):
             port_session.resolve_device("cuda")
-    for kwargs in ({"verify": "on"}, {"faults": "wear"}, {"recovery": True},
-                   {"trace": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-            ComputeSession(device="cpu", **kwargs)
+    opts = ComputeSession(device="cpu", verify="paranoid", faults="pe=5000",
+                          recovery=True, trace=True)
+    assert opts.verifier.mode == "paranoid" and opts.trace is not None
+    assert opts.device.faults.cfg.pe == 5000 and opts.reliability is not None
+    assert port.stats()["verify"]["mode"] == "on"     # the default
+    assert port.stats()["plans_verified"] > 0
 
     # on the CPU the kernels' wrappers take their plain versions: no launch
     before = dict(cuda.launches)
