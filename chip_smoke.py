@@ -35,15 +35,34 @@
    reference, so the ladder (retry, recalibrate, migrate) retires it and
    raises ``BlockRetiredError``; the pair is rewritten from the host copy
    and every result is then held against numpy.  It prints the raw bit
-   errors of the same work with recovery off, the ladder's counters, and
-   reduced-mlc's raw error rate at 10k P/E over 8 fault seeds.
+   errors of the same work with recovery off, the ladder's counters, the
+   bit errors left after ``device.age(5000 h)`` on top of the ladder
+   (measured, not gated: the sampled checkword can miss sparse errors, and
+   the JAX package leaves the same errors on the same rows,
+   ``tests/test_torch_reliability.py``), and reduced-mlc's raw error rate
+   at 10k P/E over 8 fault seeds.  Retention aging as
+   ``tests/test_reliability.py`` checks it (a 5k-P/E mlc pair, recovery on,
+   ``age(5000 h)``) must stay bit-exact with no fewer retries; tlc and
+   reduced-mlc run the same way and report their bit errors.
    In both phases the session's backend records the first call of each
    kernel at each read plan, as the served pass and the ladder make them
    (the ladder's shifted references included), and each recorded call is
    held against its kernel's plain version on the same inputs; every
    kernel the phase launched must have a recorded call, and the phase's
    launch counts must be above 0 for the kernels it needs.
-6. Prints the ``kernels`` JSON line (launches summed over the three
+6. Endurance phase: ``repro_torch.core.rber.measure_rber`` for every op at
+   fresh (2**30 bits per op), 1.5k P/E (2**27), 10k P/E (2**30) and 3k P/E
+   + 1000 h (2**27), 1024 pages per chunk; the claims of
+   ``tests/test_rber.py`` held as rates; one chunk per (op, point) counted
+   through the kernels (each call held against its plain version) and per
+   cell, the two counts equal.
+7. Applications phase: ``run_workload`` for the three Fig-10 workloads at
+   2**25 bits per operand (the bitmap index: 15 pairs, 2 GiB of Vth) and a
+   ``BitmapFilter`` over 2**25 samples with 4 pairs, each against numpy,
+   every recorded kernel call against its plain version; the kernel calls
+   per kernel must equal the launches and the CPU rehearsal's counts
+   (``APPS_LAUNCHES``).  Prints the full-scale speedup projections.
+8. Prints the ``kernels`` JSON line (launches summed over the five
    paths), then a last line ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero before the last line.  Without a
@@ -53,6 +72,7 @@ A fuller record goes to ``chiprun_out/chip_smoke.json``.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import json
 import subprocess
@@ -79,6 +99,24 @@ SERVE_REQUESTS = 96
 FAULT_PE = 10_000
 DEAD_BLOCK = (0, 0)                  # (plane, block): under die 0's first pair
 RATE_SEEDS = 8                       # fault seeds of the raw error rate
+AGE_HOURS = 5000.0                   # retention aging (5000 h)
+AGE_PE = 5000                        # wear of the gated aging check
+ENDURANCE_SEED = 0
+PAGES_PER_CHUNK = 1024               # 2**27 cells, 512 MiB of Vth per chunk
+#: (label, P/E cycles, retention hours, 16 kB pages per op): Table 2, Fig 6
+ENDURANCE_POINTS = (("fresh", 0, 0.0, 8192),          # 2**30 bits per op
+                    ("1.5k P/E", 1500, 0.0, 1024),    # 2**27
+                    ("10k P/E", 10_000, 0.0, 8192),
+                    ("3k P/E + 1000 h", 3000, 1000.0, 1024))
+RBER_BOUND_PCT = 0.015 * 1.5         # the paper's 10k-P/E bound, 1.5x slack
+APP_BITS = 2 ** 25                   # bits per operand of each workload
+APP_SEED = 3
+FILTER_SAMPLES = 2 ** 25
+FILTER_PAIRS = 4
+#: kernel calls of the applications phase, per kernel, in its rehearsal on
+#: the CPU at 1 kB pages and the same page counts (2**21 bits per operand)
+APPS_LAUNCHES = {"mlc_sense": 3, "sense_reduce": 2, "sense_reduce_popcount": 1,
+                 "bitwise_reduce": 1, "popcount_rows": 0}
 
 KERNELS = {
     "mlc_sense": ("src/repro_torch/csrc/mlc_sense.cu",
@@ -444,14 +482,24 @@ BACKEND_KERNELS = {"sense": "mlc_sense", "sense_reduce": "sense_reduce",
                    "reduce": "bitwise_reduce", "popcount": "popcount_rows"}
 
 
+@dataclasses.dataclass
+class Recording:
+    #: ``(kernel, plan or None) -> (args, kwargs, output)`` of the first call
+    #: of each kernel at each read plan
+    calls: dict = dataclasses.field(default_factory=dict)
+    #: kernel -> calls made (each call is one launch on the card)
+    counts: dict = dataclasses.field(
+        default_factory=lambda: dict.fromkeys(KERNELS, 0))
+
+
 @contextlib.contextmanager
 def recording(backend):
     """While the block runs, keep the inputs and output of the first call of
-    each kernel at each read plan that ``backend`` makes: a dict
-    ``(kernel, plan or None) -> (args, kwargs, output)``."""
+    each kernel at each read plan that ``backend`` makes, and count every
+    call per kernel (a :class:`Recording`)."""
     from repro_torch.core.mcflash import ReadPlan
 
-    calls: dict = {}
+    rec = Recording()
 
     def wrap(method: str, name: str):
         real = getattr(backend, method)
@@ -459,15 +507,16 @@ def recording(backend):
         def call(*args, **kwargs):
             out = real(*args, **kwargs)
             plan = next((a for a in args if isinstance(a, ReadPlan)), None)
-            if (name, plan) not in calls:
-                calls[name, plan] = (args, kwargs, out.clone())
+            rec.counts[name] += 1
+            if (name, plan) not in rec.calls:
+                rec.calls[name, plan] = (args, kwargs, out.clone())
             return out
         return call
 
     for method, name in BACKEND_KERNELS.items():
         setattr(backend, method, wrap(method, name))
     try:
-        yield calls
+        yield rec
     finally:
         for method in BACKEND_KERNELS:
             delattr(backend, method)        # the class's methods again
@@ -585,7 +634,7 @@ def serving_phase(gen: torch.Generator, errs: dict, gpu: str,
     t = time.perf_counter()
     eng = QueryEngine(sess)
     tickets = []
-    with recording(sess.backend) as calls:
+    with recording(sess.backend) as rec:
         for expr, pc in zip(exprs, pcs):
             tickets.append(eng.submit(expr, popcount=pc))
             eng.poll()
@@ -612,8 +661,8 @@ def serving_phase(gen: torch.Generator, errs: dict, gpu: str,
         fail(f"{len(lat)} request spans for {SERVE_REQUESTS} requests")
     p50 = lat[len(lat) // 2]
     p99 = lat[min(len(lat) - 1, int(len(lat) * 0.99))]
-    checked = hold_recorded(calls)
-    del calls
+    checked = hold_recorded(rec.calls)
+    del rec
     fold_errs(errs, checked, launches, "serving")
     require_launches(launches, ("mlc_sense", "bitwise_reduce",
                                 "popcount_rows"), "serving")
@@ -700,7 +749,7 @@ def recovery_phase(gen: torch.Generator, errs: dict, gpu: str,
             fail("the dead block holds none of the first pair's pages")
         exprs = _recovery_exprs(sess, vec, host)
         cuda.reset_launches()
-        with recording(sess.backend) as calls:
+        with recording(sess.backend) as rec:
             try:
                 sess.materialize(exprs[0][1])
             except BlockRetiredError as exc:
@@ -720,20 +769,34 @@ def recovery_phase(gen: torch.Generator, errs: dict, gpu: str,
                 if sess.popcount(expr) != int(want.sum()):
                     fail(f"{encoding} {label} popcount after recovery")
                 checks += 2
+            # retention aging on top of 10k-P/E wear, after the ladder: the
+            # bit errors left are measured, not gated (the JAX package
+            # leaves the same sparse errors, unseen by the sampled check, on
+            # the same cells: tests/test_torch_reliability.py::
+            # test_dead_block_retires_then_rewrite_reads_clean)
+            rel = sess.stats()["reliability"]
+            ladder_us = dict(sess.ledger.category_us)
+            before = rel["retries"]
+            sess.device.age(AGE_HOURS)
+            aged_errors = aged_bits = 0
+            for label, expr, want in exprs:
+                got = host_bits(sess.materialize(expr, unpacked=True))
+                aged_errors += int(np.count_nonzero(got != want))
+                aged_bits += want.size
+            aged = sess.stats()["reliability"]["retries"]
             sync()
         phase_launches = dict(cuda.launches)
         for k, n in phase_launches.items():
             launches[k] += n
-        rel = sess.stats()["reliability"]
         # the ladder's first retry shifts every reference by ``dv``
         dv = sess.reliability.policy.ladder_offsets()[0]
-        shifted = sorted({name for name, p in calls if p is not None
-                          and (name, shift_plan(p, dv)) in calls})
+        shifted = sorted({name for name, p in rec.calls if p is not None
+                          and (name, shift_plan(p, dv)) in rec.calls})
         if not shifted:
             fail(f"recovery {encoding}: no kernel call at the ladder's "
                  f"first offset {dv:+.3f} V was recorded")
-        checked = hold_recorded(calls)
-        del calls
+        checked = hold_recorded(rec.calls)
+        del rec
         fold_errs(errs, checked, phase_launches, f"recovery {encoding}")
         out["encodings"][encoding] = {
             "raw_bit_errors": raw_errors, "raw_bits": raw_bits,
@@ -743,14 +806,60 @@ def recovery_phase(gen: torch.Generator, errs: dict, gpu: str,
             "recalibrations": rel["recalibrations"],
             "migrations": rel["migrations"],
             "retired": rel["retired_blocks"], "ref_trim": rel["ref_trim"],
-            "recovery_us": sess.ledger.category_us.get("recovery", 0.0),
-            "migration_us": sess.ledger.category_us.get("migration", 0.0),
+            "recovery_us": ladder_us.get("recovery", 0.0),
+            "migration_us": ladder_us.get("migration", 0.0),
             "kernel_checks": sorted(checked), "shifted_checks": shifted,
-            "kernel_checks_dv": dv, "seconds": time.perf_counter() - t}
+            "kernel_checks_dv": dv,
+            "aging": {"hours": AGE_HOURS, "retries_before": before,
+                      "retries_after": aged, "bit_errors": aged_errors,
+                      "bits": aged_bits},
+            "seconds": time.perf_counter() - t}
         del sess, vec, exprs
     require_launches(launches, ("mlc_sense", "sense_reduce", "bitwise_reduce",
                                 "popcount_rows"), "recovery")
     out["launches"] = launches
+
+    # retention aging as tests/test_reliability.py:306 checks it (5k P/E,
+    # one written pair, recovery on): under mlc, where the JAX package makes
+    # the claim, bit-exact before and after and retries no fewer after; tlc
+    # and reduced-mlc run the same way and report their bit errors
+    cuda.reset_launches()
+    out["aging"] = {}
+    for encoding in ("mlc", "tlc", "reduced-mlc"):
+        sess = ComputeSession(device, config=config, encoding=encoding,
+                              faults={"pe": AGE_PE, "seed": 9}, seed=21)
+        raw = (torch.rand(2, operand_bits, generator=gen, device=device)
+               < 0.5).to(torch.uint8)
+        x, y = host_bits(raw[0]), host_bits(raw[1])
+        a, b = sess.write_pair("a", raw[0], "b", raw[1])
+        checks = [(a ^ b, x ^ y), (a & b, x & y), (a | b, x | y), (~b, ~y)]
+
+        def wrong_bits() -> int:
+            return sum(int(np.count_nonzero(
+                host_bits(sess.materialize(expr, unpacked=True)) != want))
+                for expr, want in checks)
+
+        start = dict(cuda.launches)
+        with recording(sess.backend) as rec:
+            wrong = {"before": wrong_bits()}
+            before = sess.stats()["reliability"]["retries"]
+            sess.device.age(AGE_HOURS)
+            wrong["after"] = wrong_bits()
+            aged = sess.stats()["reliability"]["retries"]
+            sync()
+        if encoding == "mlc" and (any(wrong.values()) or aged < before):
+            fail(f"aging mlc: bit errors {wrong}, retries {before} -> {aged}")
+        out["aging"][encoding] = {"retries_before": before,
+                                  "retries_after": aged,
+                                  "bit_errors": wrong,
+                                  "bits": len(checks) * operand_bits,
+                                  "gated": encoding == "mlc"}
+        fold_errs(errs, hold_recorded(rec.calls),
+                  {k: n - start[k] for k, n in cuda.launches.items()},
+                  f"aging {encoding}")
+        del sess, rec
+    for k, n in cuda.launches.items():
+        launches[k] += n
 
     # reduced-MLC's raw error rate at 10k P/E (no dead block, recovery off)
     t = time.perf_counter()
@@ -780,13 +889,261 @@ def recovery_phase(gen: torch.Generator, errs: dict, gpu: str,
               f"retries {r['retries']}, recalibrations {r['recalibrations']}, "
               f"migrations {r['migrations']}, retired blocks {r['retired']} "
               f"(BlockRetiredError, pair rewritten); {r['checks']} checks "
-              f"bit-exact after recovery; {r['seconds']:.2f} s", flush=True)
+              f"bit-exact after recovery; after age({AGE_HOURS:g} h) "
+              f"{r['aging']['bit_errors']} bit errors in "
+              f"{r['aging']['bits']} bits (rate "
+              f"{r['aging']['bit_errors'] / r['aging']['bits']:.3e}), retries "
+              f"{r['aging']['retries_before']} -> "
+              f"{r['aging']['retries_after']}; {r['seconds']:.2f} s",
+              flush=True)
+        if r["aging"]["bit_errors"]:
+            print(f"FINDING: {enc} at {FAULT_PE} P/E after the ladder and "
+                  f"age({AGE_HOURS:g} h): {r['aging']['bit_errors']} of "
+                  f"{r['aging']['bits']} bits wrong past the sampled "
+                  "checkword (measured, not gated: ROADMAP R4)", flush=True)
+    for enc, r in out["aging"].items():
+        e = r["bit_errors"]
+        print(f"aging ({gpu}) {enc} at {AGE_PE} P/E, {operand_bits}-bit "
+              f"pair, 4 ops: bit errors {e['before']} before and "
+              f"{e['after']} after age({AGE_HOURS:g} h) in {r['bits']} bits "
+              f"each; retries {r['retries_before']} -> {r['retries_after']}"
+              + ("; gated (tests/test_reliability.py:306)" if r["gated"]
+                 else "; reported"), flush=True)
     rate = out["reduced_mlc_rate"]
     print(f"reduced-mlc raw error rate at {FAULT_PE} P/E over {RATE_SEEDS} "
           f"fault seeds ({gpu}): {rate['bit_errors']} bit errors in "
           f"{rate['bits']} bits = {rate['rate']:.3e}; recovery phase "
           f"{out['seconds']:.2f} s; launches " + json.dumps(launches),
           flush=True)
+    return out
+
+
+# -- phases 6 and 7: endurance and applications ---------------------------------
+
+def hold_chunk(errs: dict, plan, op: str, lsb, msb, vth, backend) -> dict:
+    """One RBER chunk's error count through the kernels (the harness's own
+    ``chunk_errors``, each kernel call held against its plain version on
+    the same inputs) and per cell (``execute_plan != expected_result``);
+    the two must agree.  Folds each kernel's word difference into
+    ``errs``."""
+    from repro_torch.core import mcflash, rber
+
+    with recording(backend) as rec:
+        kernel = int(rber.chunk_errors(plan, op, vth, lsb, msb, backend))
+    for name, err in hold_recorded(rec.calls).items():
+        errs[name] = max(errs[name], err)
+    per_cell = int(torch.count_nonzero(
+        mcflash.execute_plan(plan, vth)
+        != mcflash.expected_result(op, lsb, msb)))
+    if kernel != per_cell:
+        fail(f"endurance {op}: {kernel} errors through the kernels, "
+             f"{per_cell} per cell")
+    return {"kernel": kernel, "per_cell": per_cell, "bits": int(vth.numel())}
+
+
+def endurance_phase(errs: dict, gpu: str, device: str = "cuda",
+                    points=ENDURANCE_POINTS,
+                    pages_per_chunk: int = PAGES_PER_CHUNK) -> dict:
+    """RBER against endurance (Table 2, Fig 6): ``measure_rber`` for every
+    op at every point, the claims of ``tests/test_rber.py`` held as rates,
+    and one chunk per (op, point) counted through the kernels (each call
+    held against its plain version) and per cell."""
+    from repro_torch.api.backends import Backend
+    from repro_torch.api.plan_cache import PlanCache
+    from repro_torch.core import encoding, rber, vth_model
+    from repro_torch.kernels import cuda
+
+    chip = vth_model.get_chip_model()
+    t0 = time.perf_counter()
+    cuda.reset_launches()
+    rates: dict = {}
+    for label, pe, hours, pages in points:
+        for op in encoding.ALL_OPS:
+            t = time.perf_counter()
+            r = rber.measure_rber(op, chip, pages=pages, n_pe=pe,
+                                  retention_hours=hours, seed=ENDURANCE_SEED,
+                                  pages_per_chunk=pages_per_chunk,
+                                  device=device)
+            sync()
+            rates[label, op] = row = {
+                "errors": r.errors, "bits": r.bits, "rate_pct": r.rber_pct,
+                "upper95_pct": 300.0 / r.bits if r.errors == 0 else None,
+                "seconds": time.perf_counter() - t}
+            bound = (f", 95% upper bound {row['upper95_pct']:.3e}%"
+                     if r.errors == 0 else "")
+            print(f"endurance ({gpu}) {op:4s} @ {label}: {r.errors} errors "
+                  f"in {r.bits} bits, RBER {r.rber_pct:.6f}%{bound}; "
+                  f"{row['seconds']:.2f} s", flush=True)
+    launches = dict(cuda.launches)
+    run_s = time.perf_counter() - t0
+    # one sense, one XOR and one popcount per chunk, nothing else
+    chunks = len(encoding.ALL_OPS) * sum(-(-pages // pages_per_chunk)
+                                         for *_, pages in points)
+    counted = {"mlc_sense": chunks, "bitwise_reduce": chunks,
+               "popcount_rows": chunks}
+    if device == "cuda" and launches != {**dict.fromkeys(KERNELS, 0),
+                                         **counted}:
+        fail(f"endurance: launches {launches}, expected {counted}")
+
+    backend, plans = Backend(torch.device(device)), PlanCache()
+    held: dict = {}
+    for label, pe, hours, pages in points:
+        n_bits = min(pages, pages_per_chunk) * rber.PAGE_BITS
+        for op in encoding.ALL_OPS:
+            lsb, msb, vth = rber.program_chunk(
+                ENDURANCE_SEED, 0, op=op, chip=chip, n_bits=n_bits, n_pe=pe,
+                retention_hours=hours, device=device)
+            held[f"{op} @ {label}"] = hold_chunk(
+                errs, plans.get(op, chip), op, lsb, msb, vth, backend)
+            del lsb, msb, vth
+    sync()
+    bad = {k: errs[k] for k in ("mlc_sense", "bitwise_reduce",
+                                "popcount_rows") if errs[k]}
+    if bad:
+        fail(f"endurance: kernels disagree with their plain versions: {bad}")
+
+    def rate(label, op):
+        return rates[label, op]["errors"] / rates[label, op]["bits"]
+
+    worn, cycled, aged = "10k P/E", "1.5k P/E", "3k P/E + 1000 h"
+    if not 0 < 100 * rate(cycled, "xnor") < 0.01:
+        fail(f"endurance: xnor at 1.5k P/E has RBER "
+             f"{100 * rate(cycled, 'xnor'):.6f}%, outside (0, 0.01%)")
+    for op in ("and", "or", "xnor", "not"):
+        if 100 * rate(worn, op) >= RBER_BOUND_PCT:
+            fail(f"endurance: {op} at 10k P/E has RBER "
+                 f"{100 * rate(worn, op):.6f}% >= {RBER_BOUND_PCT}%")
+    if not rate(worn, "or") > rate(cycled, "or"):
+        fail("endurance: OR is not worse at 10k P/E than at 1.5k P/E")
+    if not rate(aged, "not") > rate(aged, "and"):
+        fail("endurance: NOT is not worse than AND under retention")
+    e = {op: rates[worn, op]["errors"] for op in ("and", "or", "xnor")}
+    if not e["and"] <= e["or"] <= 2 * e["xnor"]:
+        fail(f"endurance: and <= or <= 2 xnor fails at 10k P/E: {e}")
+    fresh_errors = {op: rates["fresh", op]["errors"]
+                    for op in encoding.ALL_OPS if rates["fresh", op]["errors"]}
+    if fresh_errors:
+        print(f"FINDING: fresh pages read with errors at "
+              f"{rates['fresh', 'and']['bits']} bits per op: {fresh_errors}",
+              flush=True)
+    out = {"rates": {f"{op} @ {label}": v for (label, op), v in rates.items()},
+           "held_chunks": held, "launches": launches, "run_s": run_s,
+           "fresh_errors": fresh_errors,
+           "seconds": time.perf_counter() - t0}
+    print(f"endurance ({gpu}): bounds hold; one chunk per (op, point) "
+          f"counted alike through the kernels (each call bit-exact against "
+          f"its plain version) and per cell ({len(held)} chunks); measured "
+          f"in {run_s:.2f} s, phase "
+          f"{out['seconds']:.2f} s; launches " + json.dumps(launches),
+          flush=True)
+    return out
+
+
+def _app_oracle(workload, n_bits: int, seed: int) -> np.ndarray:
+    """The workload's result words in numpy, from the bits ``run_workload``
+    draws for ``seed``."""
+    rng = np.random.default_rng(seed)
+    bits = [rng.random(n_bits) < 0.5 for _ in range(workload.k_operands)]
+    fold = {"and": np.logical_and, "or": np.logical_or,
+            "xor": np.logical_xor}[workload.op]
+    return lane_major_words(fold.reduce(bits).astype(np.uint8))
+
+
+def applications_phase(errs: dict, gpu: str, device: str = "cuda",
+                       config=None, n_bits: int = APP_BITS,
+                       filter_samples: int = FILTER_SAMPLES) -> dict:
+    """The Fig-10 workloads through ``run_workload`` and a ``BitmapFilter``,
+    each result held against numpy, every recorded kernel call against its
+    plain version; kernel calls counted per kernel."""
+    from repro_torch.api.hostio import to_numpy
+    from repro_torch.api.session import ComputeSession
+    from repro_torch.api.workloads import run_workload
+    from repro_torch.data import BitmapFilter
+    from repro_torch.flash import system
+    from repro_torch.kernels import cuda
+
+    t0 = time.perf_counter()
+    cuda.reset_launches()
+    calls = dict.fromkeys(KERNELS, 0)
+    checked: dict = {}
+    out: dict = {"workloads": {}}
+
+    def fold(rec) -> None:
+        for name, n in rec.counts.items():
+            calls[name] += n
+        for name, err in hold_recorded(rec.calls).items():
+            checked[name] = max(checked.get(name, 0), err)
+
+    workloads = (system.image_segmentation(), system.image_encryption(),
+                 system.bitmap_index(1))
+    for i, w in enumerate(workloads):
+        seed = APP_SEED + i
+        t = time.perf_counter()
+        sess = ComputeSession(device, config=config, seed=seed)
+        with recording(sess.backend) as rec:
+            res = run_workload(w, session=sess, n_bits=n_bits, seed=seed)
+            sync()
+        wall = time.perf_counter() - t
+        got = to_numpy(res["result_packed"])
+        if not np.array_equal(got, _app_oracle(w, n_bits, seed)):
+            fail(f"{w.name}: result words differ from the numpy oracle")
+        fold(rec)
+        st = res["stats"]
+        out["workloads"][w.name] = {
+            "k": w.k_operands, "op": w.op, "bits_per_operand": n_bits,
+            "wall_s": wall, "makespan_us": res["measured"]["makespan_us"],
+            "commands": res["measured"]["commands"],
+            "megakernel_calls": st["megakernel_calls"],
+            "sense_waves": st["sense_waves"],
+            "kernel_calls": dict(rec.counts),
+            "speedup_vs": res["projection"]["speedup_vs"]}
+        del sess, res, rec
+
+    t = time.perf_counter()
+    rng = np.random.default_rng(APP_SEED + len(workloads))
+    maps = [(rng.random(filter_samples) < 0.9).astype(np.uint8)
+            for _ in range(2 * FILTER_PAIRS)]
+    sess = ComputeSession(device, config=config, seed=17)
+    bf = BitmapFilter(filter_samples, session=sess)
+    pairs = [(f"filter{j}", f"filter{j + 1}")
+             for j in range(0, 2 * FILTER_PAIRS, 2)]
+    with recording(sess.backend) as rec:
+        for j, (a, b) in enumerate(pairs):
+            bf.add_pair(a, maps[2 * j], b, maps[2 * j + 1])
+        mask, count = bf.select(pairs), bf.count(pairs)
+        sync()
+    want = np.logical_and.reduce(maps).astype(bool)
+    if not np.array_equal(mask, want) or count != int(want.sum()):
+        fail("BitmapFilter: selection differs from the numpy oracle")
+    fold(rec)
+    out["bitmap_filter"] = {"samples": filter_samples, "pairs": FILTER_PAIRS,
+                            "selected": count,
+                            "wall_s": time.perf_counter() - t,
+                            "kernel_calls": dict(rec.counts)}
+    del sess, bf, rec
+    launches = dict(cuda.launches)
+    fold_errs(errs, checked, launches, "applications")
+    if device == "cuda" and launches != calls:
+        fail(f"applications: launches {launches} differ from the backend's "
+             f"kernel calls {calls}")
+    if calls != APPS_LAUNCHES:
+        fail(f"applications: kernel calls {calls} differ from the CPU "
+             f"rehearsal's {APPS_LAUNCHES}")
+    out.update(launches=launches, kernel_calls=calls,
+               kernel_checks=sorted(checked),
+               seconds=time.perf_counter() - t0)
+    for name, r in out["workloads"].items():
+        proj = ", ".join(f"{p} {x:.2f}x" for p, x in r["speedup_vs"].items())
+        print(f"applications ({gpu}) {name}: {r['k']} operands x {n_bits} "
+              f"bits, {r['op']} chain bit-exact in {r['wall_s']:.2f} s, "
+              f"simulated makespan {r['makespan_us']:.0f} us, kernel calls "
+              f"{json.dumps(r['kernel_calls'])}; full-scale MCFlash speedup "
+              f"vs {proj}", flush=True)
+    bfo = out["bitmap_filter"]
+    print(f"applications ({gpu}) BitmapFilter: {filter_samples} samples, "
+          f"{FILTER_PAIRS} pairs, {bfo['selected']} selected, mask and count "
+          f"bit-exact in {bfo['wall_s']:.2f} s; phase {out['seconds']:.2f} s; "
+          "launches " + json.dumps(launches), flush=True)
     return out
 
 
@@ -864,8 +1221,20 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     recovery = recovery_phase(gen, errs, gpu)
+    gc.collect()
+    torch.cuda.empty_cache()
+    endurance = endurance_phase(errs, gpu)
+    require_launches(endurance["launches"], ("mlc_sense", "bitwise_reduce",
+                                             "popcount_rows"), "endurance")
+    gc.collect()
+    torch.cuda.empty_cache()
+    apps = applications_phase(errs, gpu)
+    require_launches(apps["launches"], [k for k, n in APPS_LAUNCHES.items()
+                                        if n], "applications")
     per_path = {"main": launches, "serving": serve["launches"],
-                "recovery": recovery["launches"]}
+                "recovery": recovery["launches"],
+                "endurance": endurance["launches"],
+                "applications": apps["launches"]}
     total = {k: sum(p[k] for p in per_path.values()) for k in KERNELS}
 
     kernels = []
@@ -878,7 +1247,8 @@ def main() -> int:
                         "bound_by": tm["bound_by"],
                         "library_ms": tm["library_ms"]})
     record.update(main_path=run, launches=per_path, kernels=kernels,
-                  timing=timing, serving=serve, recovery=recovery)
+                  timing=timing, serving=serve, recovery=recovery,
+                  endurance=endurance, applications=apps)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))

@@ -60,6 +60,16 @@ def encode_mlc(lsb_bits: torch.Tensor, msb_bits: torch.Tensor) -> torch.Tensor:
     return lookup(_STATE_OF_BITS, idx)
 
 
+def decode_lsb(states: torch.Tensor) -> torch.Tensor:
+    """MLC state index -> its LSB page bit (uint8)."""
+    return lookup(LSB_OF_STATE, states)
+
+
+def decode_msb(states: torch.Tensor) -> torch.Tensor:
+    """MLC state index -> its MSB page bit (uint8)."""
+    return lookup(MSB_OF_STATE, states)
+
+
 def logical_op(op: str, a: torch.Tensor,
                b: "torch.Tensor | None" = None) -> torch.Tensor:
     """Bit-level oracle for an MCFlash op on uint8/bool bit tensors."""

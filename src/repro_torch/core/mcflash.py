@@ -26,7 +26,7 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.core import sensing
+from repro_torch.core import encoding, sensing
 from repro_torch.core.vth_model import ChipModel
 
 
@@ -107,3 +107,10 @@ def execute_plan(plan: ReadPlan, vth: torch.Tensor) -> torch.Tensor:
         bits = sensing.inverse_read(bits)
     return bits
 
+
+def expected_result(op: str, lsb_bits: torch.Tensor,
+                    msb_bits: torch.Tensor) -> torch.Tensor:
+    """Logical oracle over the stored operands (A=LSB page, B=MSB page)."""
+    if op == "not":
+        return encoding.logical_op("not", msb_bits)
+    return encoding.logical_op(op, lsb_bits, msb_bits)

@@ -26,7 +26,7 @@ import torch
 
 from repro_torch.api.ledger import Ledger
 from repro_torch.api.plan_cache import ExecutableCache, PlanCache
-from repro_torch.core import tlc, vth_model
+from repro_torch.core import mcflash, tlc, vth_model
 from repro_torch.core.mcflash import ReadPlan
 from repro_torch.core.tlc import PAGES_PER_WL, TLCChipModel
 from repro_torch.core.vth_model import ChipModel
@@ -47,7 +47,10 @@ class FlashDevice:
 
     ``device`` is the torch device holding the Vth arena (``"cuda"`` or
     ``"cpu"``); placing shards on several devices (``shard_devices``) is
-    not ported yet.
+    not ported yet.  Programming keeps a copy of each wordline's page bits
+    (uint8, one byte per cell and page, on the same device) beside its Vth
+    row, never a view of the caller's tensors: the oracles
+    :meth:`stored_operands` and :meth:`expected` read them.
     """
 
     def __init__(self, chip: ChipModel | None = None,
@@ -60,8 +63,8 @@ class FlashDevice:
                  device: "torch.device | str" = "cuda"):
         if shard_devices is not None:
             raise NotImplementedError(
-                "placing arena shards on several devices is not ported yet "
-                "(ROADMAP queue 1 item 3, flash/arena.py shard_devices)")
+                "placing arena shards on several devices (shard_devices, "
+                "the placed runner) is not ported yet; see ROADMAP queue 1")
         self.device = torch.device(device)
         self.chip = chip or vth_model.get_chip_model()
         # 8-state chip model backing TLC and reduced-MLC wordlines (§7)
@@ -73,6 +76,11 @@ class FlashDevice:
         self.arena = ShardedVthArena(self._page_bits, n_dies=self.config.dies,
                                      device=self.device)
         self._slot_of: Dict[WordlineKey, SlotRef] = {}
+        # stored page bits per wordline: (one tensor per role, row), role
+        # order (2 for MLC/reduced, 3 for TLC)
+        self._operands: Dict[WordlineKey,
+                             Tuple[Tuple[torch.Tensor, ...], int]] = {}
+        self._encoding_of: Dict[WordlineKey, str] = {}
         self.pe_counts: Dict[Tuple[int, int], int] = {}
         self.ledger = Ledger()
         self.plans = PlanCache()
@@ -136,9 +144,12 @@ class FlashDevice:
                       msb_pages: List[torch.Tensor],
                       retention_hours: float = 0.0, *,
                       csb_pages: "List[torch.Tensor] | None" = None,
-                      encoding: str = tlc.MLC) -> None:
+                      encoding: str = tlc.MLC,
+                      records: "Tuple[torch.Tensor, ...] | None" = None
+                      ) -> None:
         """Draw the Vth rows of a wordline batch (one draw per page, in
-        order) and write them to the arena; books nothing."""
+        order), write them to the arena and keep the page records; books
+        nothing.  ``records``: see :meth:`_keep_records`."""
         if encoding not in tlc.ENCODINGS:
             raise ValueError(encoding)
         if encoding == tlc.TLC:
@@ -175,6 +186,9 @@ class FlashDevice:
                 vth = self.faults.perturb(vth, plane=plane, block=block,
                                           wl=wl[2], n_pe=n_pe)
             vths.append(vth)
+        self._keep_records(wls, (lsb_pages, csb_pages, msb_pages)
+                           if encoding == tlc.TLC else (lsb_pages, msb_pages),
+                           encoding, records)
         slots = []
         for wl in wls:
             slot = self._slot_of.get(wl)
@@ -188,6 +202,21 @@ class FlashDevice:
                 self.arena.retag(slot, encoding)
             slots.append(slot)
         self.arena.write(slots, torch.stack(vths))
+
+    def _keep_records(self, wls: List[WordlineKey], roles, encoding: str,
+                      records: "Tuple[torch.Tensor, ...] | None") -> None:
+        """Keep each wordline's page bits in role order: one (N, page_bits)
+        uint8 copy per role of the batch, since the records must not change
+        when the caller reuses the memory it wrote from.  ``records``, such
+        tensors that the device made itself, are kept in place of a copy.
+        A wordline keeps (batch records, row); its rows are views made on
+        :meth:`stored_operands`."""
+        if records is None:
+            records = tuple(torch.stack(pages).to(torch.uint8)
+                            for pages in roles)
+        for i, wl in enumerate(wls):
+            self._operands[wl] = (records, i)
+            self._encoding_of[wl] = encoding
 
     def _book_program(self, wls: List[WordlineKey], encoding: str) -> None:
         """Ledger entry (and lowering-time program log) of one shared-page
@@ -290,6 +319,14 @@ class FlashDevice:
                                    phases=plan.sensing_phases)
         return self.backend.sense(self.vth_stack(wls), plan)
 
+    def mcflash_read(self, wl: WordlineKey, op: str, packed: bool = True,
+                     switch_op: bool = True, *,
+                     plan: ReadPlan | None = None) -> torch.Tensor:
+        """Execute an MCFlash bitwise op on a single programmed wordline."""
+        words = self.mcflash_read_batch([wl], op, plan=plan,
+                                        switch_op=switch_op)
+        return words[0] if packed else kernel_ref.unpack_bits(words)[0]
+
     def page_read_plan(self, which: str = "lsb",
                        encoding: str = tlc.MLC) -> ReadPlan:
         """Default-reference read plan for one shared-page role."""
@@ -340,7 +377,9 @@ class FlashDevice:
             self.backend.sense(self.vth_stack(srcs_a), plan_a))
         bits_b = kernel_ref.unpack_bits(
             self.backend.sense(self.vth_stack(srcs_b), plan_b))
-        self._program_rows(dsts, list(bits_a), list(bits_b))
+        # the sensed bits are the device's own: they are the records too
+        self._program_rows(dsts, list(bits_a), list(bits_b),
+                           records=(bits_a, bits_b))
         for wa, wb, dst in zip(srcs_a, srcs_b, dsts):
             self.account_page_read_batch([wa], which_a,
                                          phases=plan_a.sensing_phases)
@@ -352,11 +391,18 @@ class FlashDevice:
         self.pe_counts[(plane, block)] = self.pe_counts.get((plane, block), 0) + 1
         stale = [k for k in self._slot_of if k[0] == plane and k[1] == block]
         self.arena.free([self._slot_of.pop(wl) for wl in stale])
+        for wl in stale:
+            self._operands.pop(wl, None)
+            self._encoding_of.pop(wl, None)
         # block erase ~ 3.5 ms, energy ~ 2x page program
         self.ledger.add_die(self.die_of_plane(plane), 3500.0,
                             2 * self.energy.e_prog_uj_kb * self.config.page_kb,
                             category="erase",
                             label=f"erase p{plane}b{block}")
+
+    def dma_to_controller(self, wl: WordlineKey) -> None:
+        """Account a page transfer NAND -> controller on the wordline's channel."""
+        self.dma_to_controller_batch([wl])
 
     def dma_to_controller_batch(self, wls: List[WordlineKey]) -> None:
         """Account NAND -> controller transfers for a page batch in one call."""
@@ -367,3 +413,33 @@ class FlashDevice:
     def ext_to_host(self, n_bytes: int) -> None:
         self.ledger.add_host(n_bytes / (self.config.host_bw_gbps * 1e3),
                              label=f"to-host {n_bytes}B")
+
+    def age(self, hours: float) -> None:
+        """Advance simulated retention time: every already-programmed arena
+        row drifts down by the fault model's uniform retention term (later
+        programs age from the new baseline).  No-op without a fault model."""
+        if self.faults is None or hours <= 0:
+            return
+        delta = self.faults.age_delta(hours)
+        refs = list(self._slot_of.values())
+        if refs and delta != 0.0:
+            self.arena.write(refs, self.arena.gather(refs) + delta)
+
+    # -- oracles for verification -------------------------------------------
+    def stored_operands(self, wl: WordlineKey) -> Tuple[torch.Tensor, ...]:
+        """Stored page bits in role order (2 pages for MLC/reduced, 3 TLC)."""
+        records, row = self._operands[wl]
+        return tuple(rows[row] for rows in records)
+
+    def encoding_of(self, wl: WordlineKey) -> str:
+        """Row encoding of a programmed wordline."""
+        return self._encoding_of[wl]
+
+    def expected(self, wl: WordlineKey, op: str) -> torch.Tensor:
+        """Logical oracle of ``op`` over a 2-page wordline's stored bits."""
+        pages = self.stored_operands(wl)
+        if len(pages) != 2:
+            raise ValueError("expected() models 2-operand wordlines; 3-page "
+                             "TLC wordlines need a 3-operand oracle")
+        lsb, msb = pages
+        return mcflash.expected_result(op, lsb, msb)

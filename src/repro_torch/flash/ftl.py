@@ -73,6 +73,16 @@ class FTL:
     def _tracer(self):
         return self.device.ledger.tracer
 
+    @property
+    def session(self):
+        """The :class:`~repro_torch.api.session.ComputeSession` bound to this
+        FTL (the latest one built over it), created on first use."""
+        if self._session is None:
+            from repro_torch.api.session import ComputeSession  # api layers above
+
+            ComputeSession(ftl=self)           # binds itself as _session
+        return self._session
+
     # -- allocation ----------------------------------------------------------
     def allocate_wordline(self, plane: int) -> WordlineKey:
         block, wl = self._next_wl.get(plane, (0, 0))
@@ -109,6 +119,14 @@ class FTL:
         ppd = self.cfg.planes_per_die
         return [self.allocate_wordline(die * ppd + (i % ppd))
                 for i in range(n_pages)]
+
+    def die_of(self, name: str) -> int:
+        """Home die of a registered vector."""
+        return self.vectors[name].die
+
+    def encoding_of(self, name: str) -> str:
+        """Row encoding of a registered vector."""
+        return self.vectors[name].encoding
 
     def partner_of(self, name: str) -> "str | None":
         """The one co-located partner of an MLC-style pair (None when the
@@ -149,7 +167,10 @@ class FTL:
                      else checkwords.DEFAULT_SAMPLES)
         pos = checkwords.sample_positions(n_bits, n_samples)
         idx = torch.tensor(pos, dtype=torch.long, device=bits.device)
-        return bits.reshape(-1)[idx].to(torch.uint8).cpu().numpy()
+        # the host's own copy of the bits being written, not a flash read:
+        # the controller keeps it, so no channel or host link carries it
+        sampled = bits.reshape(-1)[idx].to(torch.uint8)
+        return sampled.cpu().numpy()  # verify: allow(unledgered-transfer)
 
     def _paginate(self, bits: torch.Tensor) -> List[torch.Tensor]:
         pb = self.cfg.page_bits

@@ -8,6 +8,8 @@ severity from :func:`repro_torch.core.vth_model.pe_wear_scale`.  Common-mode
 plus bounded noise is the regime dynamic sensing targets: one scalar
 reference offset recovers the data exactly.  Optional stuck cells and dead
 blocks model the unrecoverable tail that forces block retirement.
+Retention that passes after programming (:meth:`FaultModel.age_delta`,
+applied by ``FlashDevice.age``) shifts every resident row down uniformly.
 
 Every perturbation draws from a ``torch.Generator`` on the row's device,
 seeded from ``(seed, plane, block, wl)``, so it replays regardless of
@@ -18,13 +20,13 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import FrozenSet, Tuple
+from typing import FrozenSet, Sequence, Tuple
 
 import torch
 
 from repro_torch.core.vth_model import pe_wear_scale
 
-__all__ = ["FaultConfig", "FaultModel", "STUCK_VTH"]
+__all__ = ["FaultConfig", "FaultModel", "STUCK_VTH", "keyed_generator"]
 
 #: Vth a stuck-at cell is pinned to — above every read reference, so the cell
 #: always senses as "not conducting" no matter the offset (unrecoverable).
@@ -39,6 +41,19 @@ def _mix64(x: int) -> int:
     x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
     x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _MASK64
     return x ^ (x >> 31)
+
+
+def keyed_generator(seed: int, parts: Sequence[int],
+                    device: "torch.device | str") -> torch.Generator:
+    """A ``torch.Generator`` on ``device`` seeded from ``seed`` and the key
+    ``parts`` through a splitmix64 chain, in place of ``jax.random.fold_in``:
+    each key gets its own stream, whatever order the keys are drawn in."""
+    key = _mix64(seed)
+    for part in parts:
+        key = _mix64(key ^ (int(part) & _MASK64))
+    gen = torch.Generator(device=device)
+    gen.manual_seed(key & ((1 << 63) - 1))
+    return gen
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,12 +118,7 @@ class FaultModel:
     def generator(self, plane: int, block: int, wl: int,
                   device: "torch.device | str") -> torch.Generator:
         """The generator of one wordline's perturbation, on ``device``."""
-        key = _mix64(self.cfg.seed)
-        for part in (plane, block, wl):
-            key = _mix64(key ^ (int(part) & _MASK64))
-        gen = torch.Generator(device=device)
-        gen.manual_seed(key & ((1 << 63) - 1))
-        return gen
+        return keyed_generator(self.cfg.seed, (plane, block, wl), device)
 
     # -- physics --------------------------------------------------------------
     def wear(self, n_pe_extra: int = 0) -> float:
@@ -147,3 +157,10 @@ class FaultModel:
             stuck = uniform() < cfg.stuck_bit_pct / 100.0
             out = torch.where(stuck, torch.full_like(out, STUCK_VTH), out)
         return out
+
+    def age_delta(self, extra_hours: float) -> float:
+        """Advance retention time; returns the (uniform, negative) Vth delta
+        the device must apply to every already-programmed arena row."""
+        before = self.retention_shift(self.aged_hours)
+        self.aged_hours += float(extra_hours)
+        return -(self.retention_shift(self.aged_hours) - before)
