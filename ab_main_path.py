@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Main-path and served-pass wall time of two checkouts of this repository,
 in alternating turns on one NVIDIA card, and the cost of the change's page
-records.
+records; or, with ``--placed``, the placed wave runner against the
+unplaced one in one checkout.
 
     python3 ab_main_path.py PARENT_DIR CHANGE_DIR [--rounds 2] [--pairs 8] [--serve-pairs 4]
     python3 ab_main_path.py PARENT_DIR CHANGE_DIR --device cpu --pairs 0
+    python3 ab_main_path.py --placed DIR [--rounds 2] [--pairs 8] [--profile]
 
 In each of ``--rounds`` rounds, one fresh worker process per checkout
 imports that checkout's ``chip_smoke``, builds its CUDA kernels (once per
@@ -30,11 +32,24 @@ calls, rows, bytes copied, host seconds spent in it and, on the card, the
 time between CUDA events around each call (line ``AB records {...}``).
 The timed runs are not part of the pairs.  ``--profile`` then runs each
 workload once more on each side under ``cProfile`` and prints the 15
-Python functions with the most time of their own (line ``AB profile``).
+Python functions, and the 10 source files, with the most time of their
+own (line ``AB profile``).
+
+``--placed`` runs both workers in ``DIR``, one on unplaced devices and
+one on ``FlashDevice(shard_devices=[device] * 4)`` (four streams on one
+card), and pairs them the same way on two workloads (``--pairs`` each):
+``chip_smoke.placed_workload`` on a fresh device (the main path's Table-1
+ops under three encodings and the bitmap index, each against numpy), and
+the die-parallel fold query (``chip_smoke.fold_query``: one wave of 15
+die-disjoint sense groups and a combine) on a device written once per
+worker, in ms per materialize over ``chip_smoke.QUERY_ITERS`` calls.
+The paired differences are then placed - unplaced.
 
 ``--device cpu`` rehearses the served pass at 1 kB pages and 2**16-bit
-columns (the main path has no small size: give ``--pairs 0``).  Exits
-non-zero when a turn fails or, with ``--device cuda``, without a card.
+columns (the main path has no small size: give ``--pairs 0``), and the
+placed workloads at 1 kB pages, 2**17-bit bitmaps and 2**15-bit Table-1
+operands.  Exits non-zero when a turn fails or, with ``--device cuda``,
+without a card.
 """
 from __future__ import annotations
 
@@ -57,6 +72,8 @@ from repro_torch.serve import QueryEngine
 
 DEVICE = sys.argv[1]
 ON_CARD = DEVICE == "cuda"
+MODE = sys.argv[2]        # "checkout", or "unplaced" / "placed" devices
+SHARDS = [DEVICE] * chip_smoke.PLACED_SHARDS if MODE == "placed" else None
 CONFIG = None if ON_CARD else SSDConfig(page_kb=1)
 COLUMN_BITS = chip_smoke.BITMAP_USERS if ON_CARD else 2 ** 16
 
@@ -64,6 +81,11 @@ COLUMN_BITS = chip_smoke.BITMAP_USERS if ON_CARD else 2 ** 16
 def sync():
     if ON_CARD:
         torch.cuda.synchronize()
+
+
+if not ON_CARD:
+    chip_smoke.sync = sync
+    chip_smoke.BITMAP_USERS, chip_smoke.TABLE1_BITS = 2 ** 17, 2 ** 15
 
 
 def tidy():
@@ -117,6 +139,25 @@ def serve():
     return {"write_s": write_s, "serve_s": serve_s}
 
 
+def placed_workload():
+    sess = chip_smoke.placed_session(SHARDS, DEVICE, CONFIG)
+    return {"workload_s": chip_smoke.placed_workload(sess)[0]}
+
+
+FOLD = []
+
+
+def fold():
+    # the fold query on one device per worker, written on the first call
+    if not FOLD:
+        sess = chip_smoke.placed_session(SHARDS, DEVICE, CONFIG)
+        FOLD.extend((sess, chip_smoke.placed_workload(sess)[1]))
+    sess, query = FOLD
+    return {"fold_ms": 1e3 * chip_smoke.time_query(sess, query,
+                                                   chip_smoke.QUERY_ITERS),
+            "placed_unit_dispatches": sess.placed_unit_dispatches}
+
+
 def records(work):
     orig = FlashDevice._keep_records
     acc = {"calls": 0, "rows": 0, "copied_bytes": 0, "host_s": 0.0}
@@ -158,10 +199,16 @@ def profiled(work):
     rows = sorted(pstats.Stats(prof).stats.items(), key=lambda kv: -kv[1][2])
     out["top"] = [[f"{os.path.basename(f)}:{ln}:{fn}", nc, tt, ct]
                   for (f, ln, fn), (_, nc, tt, ct, _) in rows[:15]]
+    # and the 10 source files with the most time of their own
+    by_file = {}
+    for (f, _, _), (_, _, tt, _, _) in rows:
+        by_file[os.path.basename(f)] = by_file.get(os.path.basename(f), 0) + tt
+    out["files"] = sorted(by_file.items(), key=lambda kv: -kv[1])[:10]
     return out
 
 
-WORK = {"main": main_path, "serve": serve}
+WORK = ({"main": main_path, "serve": serve} if MODE == "checkout"
+        else {"workload": placed_workload, "fold": fold})
 if ON_CARD:
     from repro_torch.kernels import cuda
     cuda.build()
@@ -181,12 +228,14 @@ for line in sys.stdin:
 
 
 class Worker:
-    """One checkout's worker process: send a workload, read its result."""
+    """One checkout's worker process: send a workload, read its result.
+    ``mode`` is ``"checkout"`` (the main path and the served pass), or
+    ``"unplaced"`` / ``"placed"`` (the placed workloads on such devices)."""
 
-    def __init__(self, tree: Path, device: str):
+    def __init__(self, tree: Path, device: str, mode: str):
         self.tree = tree
         self.proc = subprocess.Popen(
-            [sys.executable, "-c", WORKER, device], cwd=tree, text=True,
+            [sys.executable, "-c", WORKER, device, mode], cwd=tree, text=True,
             stdin=subprocess.PIPE, stdout=subprocess.PIPE)
 
     def read(self):
@@ -209,6 +258,9 @@ class Worker:
 
 
 def summary(samples: dict, key: str) -> dict:
+    """Per side, the median, quartiles and range of ``key``; then the median
+    of the paired differences (second side - first) and how many pairs
+    the second side was slower in."""
     out = {}
     for side, runs in samples.items():
         xs = [r[key] for r in runs]
@@ -216,20 +268,23 @@ def summary(samples: dict, key: str) -> dict:
              if len(xs) > 1 else xs * 3)
         out[side] = {"median": statistics.median(xs), "q1": q[0], "q3": q[2],
                      "min": min(xs), "max": max(xs)}
-    diffs = [c[key] - p[key] for p, c in zip(samples["parent"],
-                                             samples["change"])]
+    first, second = samples.values()
+    diffs = [c[key] - p[key] for p, c in zip(first, second)]
     out["paired_diff_median"] = statistics.median(diffs)
-    out["change_slower_pairs"] = sum(d > 0 for d in diffs)
+    out["slower_pairs"] = sum(d > 0 for d in diffs)
     out["pairs"] = len(diffs)
     return out
 
 
 def main(argv: "list[str] | None" = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("parent", type=Path)
-    ap.add_argument("change", type=Path)
+    ap.add_argument("trees", type=Path, nargs="+", metavar="DIR",
+                    help="PARENT_DIR CHANGE_DIR, or one DIR with --placed")
+    ap.add_argument("--placed", action="store_true",
+                    help="placed against unplaced devices in one DIR")
     ap.add_argument("--pairs", type=int, default=8,
-                    help="main-path pairs per round (0 skips the main path)")
+                    help="main-path pairs per round, or with --placed pairs "
+                         "of each workload (0 skips it)")
     ap.add_argument("--serve-pairs", type=int, default=4,
                     help="served-pass pairs per round (0 skips it)")
     ap.add_argument("--rounds", type=int, default=2,
@@ -238,19 +293,30 @@ def main(argv: "list[str] | None" = None) -> int:
                     help="last, profile each workload once on each side")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     args = ap.parse_args(argv)
+    if len(args.trees) != (1 if args.placed else 2):
+        ap.error("give PARENT_DIR CHANGE_DIR, or one DIR with --placed")
+    if args.placed:
+        tree = args.trees[0].resolve()
+        sides = {"unplaced": (tree, "unplaced"), "placed": (tree, "placed")}
+        work = [("workload", "workload_s", args.pairs),
+                ("fold", "fold_ms", args.pairs)]
+    else:
+        sides = {side: (tree.resolve(), "checkout")
+                 for side, tree in zip(("parent", "change"), args.trees)}
+        work = [("main", "main_path_s", args.pairs),
+                ("serve", "serve_s", args.serve_pairs)]
+    work = [w for w in work if w[2]]
+    first, second = sides
     if args.device == "cuda":
         import torch
 
         if not torch.cuda.is_available():
             print("ab_main_path: no CUDA device", file=sys.stderr)
             return 2
-    work = [(kind, key, pairs) for kind, key, pairs in (
-        ("main", "main_path_s", args.pairs),
-        ("serve", "serve_s", args.serve_pairs)) if pairs]
-    samples = {kind: {"parent": [], "change": []} for kind, _, _ in work}
+    samples = {kind: {side: [] for side in sides} for kind, _, _ in work}
     for rnd in range(args.rounds):
-        workers = {side: Worker(getattr(args, side).resolve(), args.device)
-                   for side in ("parent", "change")}
+        workers = {side: Worker(tree, args.device, mode)
+                   for side, (tree, mode) in sides.items()}
         try:
             for w in workers.values():
                 w.read()                       # built and imported
@@ -259,16 +325,18 @@ def main(argv: "list[str] | None" = None) -> int:
                     print(f"AB warm-up {kind} round {rnd} {side} "
                           + json.dumps(w.run(kind)), flush=True)
                 for i in range(pairs):
-                    for side in (("parent", "change") if i % 2 == 0
-                                 else ("change", "parent")):
+                    for side in ((first, second) if i % 2 == 0
+                                 else (second, first)):
                         out = workers[side].run(kind)
                         samples[kind][side].append(out)
                         print(f"AB {kind} round {rnd} pair {i} {side} "
                               + json.dumps(out), flush=True)
             if rnd == args.rounds - 1:
                 for kind, _, _ in work:
-                    print(f"AB records {kind} " + json.dumps(
-                        workers["change"].run(kind + ":records")), flush=True)
+                    if not args.placed:
+                        print(f"AB records {kind} " + json.dumps(
+                            workers[second].run(kind + ":records")),
+                            flush=True)
                     for side, w in (workers.items() if args.profile else ()):
                         print(f"AB profile {kind} {side} " + json.dumps(
                             w.run(kind + ":profile")), flush=True)

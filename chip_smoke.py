@@ -62,7 +62,33 @@
    every recorded kernel call against its plain version; the kernel calls
    per kernel must equal the launches and the CPU rehearsal's counts
    (``APPS_LAUNCHES``).  Prints the full-scale speedup projections.
-8. Prints the ``kernels`` JSON line (launches summed over the five
+8. Placed phase: ``FlashDevice(shard_devices=["cuda"] * 4)`` (four
+   streams on the card, die ``d`` on stream ``d % 4``) runs the main
+   path's Table-1 ops under the three encodings at 2**20 bits and the
+   30-operand bitmap index at 2**25 users, plus an OR over the bitmap's 15
+   day pairs, AND and XOR in turn (one pair per die: one wave of 15
+   die-disjoint sense groups and a combine).  Every
+   result equals numpy and the unplaced device's words, the plan counters
+   equal the unplaced run's, ``placed_unit_dispatches`` is above 0, the
+   recorded kernel calls ran on at least two streams and each equals its
+   plain version.  Placed and unplaced are then timed in alternating
+   pairs: the whole workload on fresh devices, and the fold query.
+9. LM phase: ``Engine.from_seed(get_config("gemma3-1b"))`` at full width
+   (26 layers, d_model 1152, vocab 262144; about 1e9 parameters) on the
+   card serves 4 prompts of 64 tokens with 32 new tokens at max_seq 256.
+   Two greedy calls give equal tokens, the prompts come back unchanged,
+   ``decode_calls`` is 31 per call, and each decode step's logits equal a
+   full prefill's over the same prefix within 2e-2 of the logits' scale.
+   Then ``delta_encode`` / ``delta_apply`` of the whole parameter tree
+   against a copy with one layer perturbed round-trips bit for bit,
+   launching ``bitwise_reduce`` once per leaf and direction; its recorded
+   call equals the plain version.  Prints prefill and decode times,
+   tokens/s and the peak allocated memory.  A second engine over the same
+   weights at max_seq 1024 (twice the 512-token window) serves prompts of
+   480 tokens with 64 new, so each sliding-window ring wraps after 32
+   steps; every decode step's logits, teacher-forced, equal those of one
+   forward pass over the tokens within the same tolerance.
+10. Prints the ``kernels`` JSON line (launches summed over the seven
    paths), then a last line ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero before the last line.  Without a
@@ -117,6 +143,23 @@ FILTER_PAIRS = 4
 #: the CPU at 1 kB pages and the same page counts (2**21 bits per operand)
 APPS_LAUNCHES = {"mlc_sense": 3, "sense_reduce": 2, "sense_reduce_popcount": 1,
                  "bitwise_reduce": 1, "popcount_rows": 0}
+PLACED_SHARDS = 4                    # FlashDevice(shard_devices=["cuda"] * 4)
+PLACED_SEED = 5
+PLACED_PAIRS = 3                     # placed / unplaced workload pairs, timed
+QUERY_PAIRS = 8                      # ... and pairs of the fold query
+QUERY_ITERS = 10                     # materializes per timed query turn
+LM_ARCH = "gemma3-1b"                # at its published widths and depth
+LM_BATCH = 4
+LM_PROMPT = 64
+LM_NEW = 32
+LM_MAX_SEQ = 256
+LM_SEED = 0
+#: decode logits against a full prefill's, as a share of the logits' scale
+#: (the bfloat16 tolerance of tests/test_torch_lm.py)
+LM_TOL = 2e-2
+#: decode steps before and after each sliding-window ring wraps, in the LM
+#: phase's second run (prompt = window - LM_WRAP_STEPS, max_seq 2 * window)
+LM_WRAP_STEPS = 32
 
 KERNELS = {
     "mlc_sense": ("src/repro_torch/csrc/mlc_sense.cu",
@@ -350,14 +393,20 @@ def host_bits(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy().astype(bool)
 
 
-def expect(got: torch.Tensor, want: np.ndarray, what: str) -> None:
+def expect(got: torch.Tensor, want: np.ndarray, what: str,
+           words: "dict | None" = None) -> None:
+    """``got`` must equal the numpy oracle bit for bit; with ``words``,
+    its bits are kept there (packed) under ``what``."""
     got = host_bits(got)
     if got.shape != want.shape or not np.array_equal(got, want):
         bad = int((got != want).sum()) if got.shape == want.shape else -1
         fail(f"{what}: {bad} bits differ from the numpy oracle")
+    if words is not None:
+        words[what] = np.packbits(got)
 
 
-def table1(sess, encoding: str, gen: torch.Generator) -> int:
+def table1(sess, encoding: str, gen: torch.Generator,
+           words: "dict | None" = None) -> int:
     """The seven Table-1 ops (and the TLC 3-operand fast paths) under one
     encoding, each materialized and counted; returns the checks made."""
     p = f"{encoding}_"
@@ -375,7 +424,8 @@ def table1(sess, encoding: str, gen: torch.Generator) -> int:
     checks = 0
     for op, expr in exprs.items():
         want = oracle(op, a_np, b_np) if op != "not" else ~b_np
-        expect(sess.materialize(expr, unpacked=True), want, f"{encoding} {op}")
+        expect(sess.materialize(expr, unpacked=True), want, f"{encoding} {op}",
+               words)
         if sess.popcount(expr) != int(want.sum()):
             fail(f"{encoding} {op} popcount")
         checks += 2
@@ -384,14 +434,16 @@ def table1(sess, encoding: str, gen: torch.Generator) -> int:
         extra = {"and3": (a & b & c, a_np & b_np & c_np),
                  "or3": (a | b | c, a_np | b_np | c_np)}
     for name, (expr, want) in extra.items():
-        expect(sess.materialize(expr, unpacked=True), want, f"{encoding} {name}")
+        expect(sess.materialize(expr, unpacked=True), want, f"{encoding} {name}",
+               words)
         if sess.popcount(expr) != int(want.sum()):
             fail(f"{encoding} {name} popcount")
         checks += 2
     return checks
 
 
-def bitmap_index(sess, gen: torch.Generator) -> dict:
+def bitmap_index(sess, gen: torch.Generator,
+                 words: "dict | None" = None) -> dict:
     """Fig-10 bitmap index: AND over 30 daily activity bitmaps, 2**25 users."""
     days = (torch.rand(BITMAP_DAYS, BITMAP_USERS, generator=gen,
                        device=sess.torch_device) < 0.9).to(torch.uint8)
@@ -401,7 +453,8 @@ def bitmap_index(sess, gen: torch.Generator) -> dict:
     host = days.cpu().numpy().astype(bool)
     want = np.logical_and.reduce(host, axis=0)
     expr = sess.chain("and", vecs)
-    expect(sess.materialize(expr, unpacked=True), want, "bitmap AND of 30")
+    expect(sess.materialize(expr, unpacked=True), want, "bitmap AND of 30",
+           words)
     count = sess.popcount(expr)
     if count != int(want.sum()):
         fail(f"bitmap popcount {count} != {int(want.sum())}")
@@ -410,7 +463,7 @@ def bitmap_index(sess, gen: torch.Generator) -> dict:
         fail("day0 & day1 popcount")
     mixed = (vecs[0] & vecs[1]) | (vecs[2] ^ vecs[3])
     expect(sess.materialize(mixed, unpacked=True),
-           pair_want | (host[2] ^ host[3]), "(d0 & d1) | (d2 ^ d3)")
+           pair_want | (host[2] ^ host[3]), "(d0 & d1) | (d2 ^ d3)", words)
     return {"users": BITMAP_USERS, "days": BITMAP_DAYS,
             "active_all_month": count, "checks": 4}
 
@@ -490,13 +543,17 @@ class Recording:
     #: kernel -> calls made (each call is one launch on the card)
     counts: dict = dataclasses.field(
         default_factory=lambda: dict.fromkeys(KERNELS, 0))
+    #: kernel -> the CUDA streams its calls were issued on (on a card)
+    streams: dict = dataclasses.field(
+        default_factory=lambda: {k: set() for k in KERNELS})
 
 
 @contextlib.contextmanager
 def recording(backend):
     """While the block runs, keep the inputs and output of the first call of
-    each kernel at each read plan that ``backend`` makes, and count every
-    call per kernel (a :class:`Recording`)."""
+    each kernel at each read plan that ``backend`` makes, count every call
+    per kernel and note the current CUDA stream of each (a
+    :class:`Recording`)."""
     from repro_torch.core.mcflash import ReadPlan
 
     rec = Recording()
@@ -508,6 +565,8 @@ def recording(backend):
             out = real(*args, **kwargs)
             plan = next((a for a in args if isinstance(a, ReadPlan)), None)
             rec.counts[name] += 1
+            if out.device.type == "cuda":
+                rec.streams[name].add(torch.cuda.current_stream().cuda_stream)
             if (name, plan) not in rec.calls:
                 rec.calls[name, plan] = (args, kwargs, out.clone())
             return out
@@ -1147,6 +1206,446 @@ def applications_phase(errs: dict, gpu: str, device: str = "cuda",
     return out
 
 
+# -- phase 8: the placed wave runner on per-shard streams --------------------------
+
+def placed_session(shard_devices, device: str = "cuda", config=None,
+                   seed: int = PLACED_SEED):
+    """A session on a fresh device whose shards sit on ``shard_devices``
+    (None: unplaced)."""
+    from repro_torch.api.session import ComputeSession
+    from repro_torch.flash.device import FlashDevice
+
+    return ComputeSession(flash=FlashDevice(config=config, seed=seed,
+                                            device=device,
+                                            shard_devices=shard_devices))
+
+
+def placed_workload(sess, seed: int = PLACED_SEED,
+                    words: "dict | None" = None):
+    """The main path's Table-1 ops under the three encodings and the
+    30-operand bitmap index on ``sess``'s device, each result against
+    numpy, then the die-parallel fold query over the bitmap's 15 pairs.
+    Returns (seconds of the first two, the fold query)."""
+    from repro_torch.api.session import ComputeSession
+
+    device = sess.torch_device.type
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    t = time.perf_counter()
+    for encoding in ("mlc", "tlc", "reduced-mlc"):
+        s = sess if encoding == "mlc" else ComputeSession(
+            flash=sess.device, encoding=encoding)
+        table1(s, encoding, gen, words)
+    state = gen.get_state()
+    bitmap_index(sess, gen, words)
+    if device == "cuda":
+        sync()
+    seconds = time.perf_counter() - t
+    # the OR over the 15 day pairs, AND and XOR in turn: one pair per die,
+    # and the two read plans keep the senses out of one fused pass, so the
+    # plan is one wave of 15 die-disjoint sense groups, then a controller
+    # combine.  Its oracle: the same day bitmaps again, from the
+    # generator's state.
+    redraw = torch.Generator(device=device)
+    redraw.set_state(state)
+    days = torch.rand(BITMAP_DAYS, BITMAP_USERS, generator=redraw,
+                      device=device) < 0.9
+    want = host_bits(torch.cat([days[0::4] & days[1::4],
+                                days[2::4] ^ days[3::4]]).any(dim=0))
+    del days
+    query = fold_query(sess)
+    expect(sess.materialize(query, unpacked=True), want,
+           "fold of 15 pair ANDs / XORs", words)
+    return seconds, query
+
+
+def fold_query(sess):
+    """OR over the bitmap's 15 day pairs, AND and XOR in turn."""
+    pairs = [(sess.vector(f"day{d}"), sess.vector(f"day{d + 1}"))
+             for d in range(0, BITMAP_DAYS, 2)]
+    return sess.chain("or", [a & b if k % 2 == 0 else a ^ b
+                             for k, (a, b) in enumerate(pairs)])
+
+
+def time_query(sess, query, iters: int) -> float:
+    """Seconds per materialize of ``query``: host clock around ``iters``
+    calls, ending in a synchronize."""
+    sess.materialize(query)
+    sync()
+    t = time.perf_counter()
+    for _ in range(iters):
+        sess.materialize(query)
+    sync()
+    return (time.perf_counter() - t) / iters
+
+
+def kernel_overlap(fn) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: the card's kernel time
+    summed over kernels, the time in which any kernel ran (the union of
+    their intervals), the share of kernel time that overlapped another
+    kernel, and the streams the kernels ran on."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    sync()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        sync()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        fail("torch.profiler recorded no kernel on the card")
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy = sum(end - start for start, end in spans)
+    union, (lo, hi) = 0.0, spans[0]
+    for start, end in spans[1:]:
+        if start > hi:
+            union, lo = union + hi - lo, start
+        hi = max(hi, end)
+    union += hi - lo
+    return {"kernels": len(kernels), "kernel_ms": busy / 1e3,
+            "union_ms": union / 1e3, "overlap_share": 1 - union / busy,
+            "streams": len({e.device_resource_id for e in kernels})}
+
+
+def placed_phase(errs: dict, gpu: str, device: str = "cuda", config=None,
+                 pairs: int = PLACED_PAIRS, query_pairs: int = QUERY_PAIRS,
+                 query_iters: int = QUERY_ITERS) -> dict:
+    """``FlashDevice(shard_devices=[device] * 4)`` against the unplaced
+    device on the same work: words equal each other and numpy, plan
+    counters equal, the placed runner dispatched units on their shards'
+    streams (at least two streams on a card), every recorded kernel call
+    equals its plain version; then placed and unplaced timed in
+    alternating pairs (the whole workload on fresh devices, and the fold
+    query on the written ones)."""
+    from repro_torch.kernels import cuda
+
+    t0 = time.perf_counter()
+    shards = [device] * PLACED_SHARDS
+    ref_words: dict = {}
+    plain = placed_session(None, device, config)
+    placed_workload(plain, words=ref_words)
+    placed = placed_session(shards, device, config)
+    placed_words: dict = {}
+    cuda.reset_launches()
+    with recording(placed.backend) as rec:
+        _, query = placed_workload(placed, words=placed_words)
+        if device == "cuda":
+            sync()
+    launches = dict(cuda.launches)
+    if placed_words.keys() != ref_words.keys() or any(
+            not np.array_equal(placed_words[k], ref_words[k])
+            for k in ref_words):
+        fail("placed: words differ from the unplaced session's")
+    if placed.placed_unit_dispatches <= 0 or plain.placed_unit_dispatches:
+        fail(f"placed: placed_unit_dispatches {placed.placed_unit_dispatches}"
+             f" (unplaced {plain.placed_unit_dispatches})")
+    streams = {k: len(v) for k, v in rec.streams.items()}
+    n_streams = len(set().union(*rec.streams.values()))
+    if device == "cuda" and n_streams < 2:
+        fail(f"placed: kernel calls on {n_streams} stream(s), want >= 2")
+    checked = hold_recorded(rec.calls)
+    del rec
+    fold_errs(errs, checked, launches, "placed")
+    counters = ("sense_items", "sense_batches", "sense_waves",
+                "megakernel_calls")
+    pst, ust = placed.stats(), plain.stats()
+    if any(pst[k] != ust[k] for k in counters):
+        fail("placed: plan counters differ from the unplaced run: "
+             + json.dumps({k: [pst[k], ust[k]] for k in counters}))
+    out = {"shards": len(shards), "checks": len(ref_words),
+           "placed_unit_dispatches": placed.placed_unit_dispatches,
+           "streams": n_streams, "streams_per_kernel": streams,
+           "launches": launches, "kernel_checks": sorted(checked),
+           **{k: pst[k] for k in counters}}
+    plain_query = fold_query(plain)
+    plan = placed.lower(query)
+    if len(plan.waves[0].groups) != BITMAP_DAYS // 2:
+        fail(f"placed: the fold's first wave holds {len(plan.waves[0].groups)}"
+             " sense groups, not one per pair")
+    if device == "cuda":
+        out["fold_profile"] = {
+            "placed": kernel_overlap(lambda: placed.materialize(query)),
+            "unplaced": kernel_overlap(lambda: plain.materialize(plain_query))}
+    query_s = {"placed": [], "unplaced": []}
+    for i in range(query_pairs):
+        order = (("placed", placed, query), ("unplaced", plain, plain_query))
+        for name, sess, q in (order if i % 2 == 0 else order[::-1]):
+            query_s[name].append(time_query(sess, q, query_iters))
+    del placed, plain, query, plain_query
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    workload_s = {"placed": [], "unplaced": []}
+    for i in range(pairs):
+        order = (("placed", shards), ("unplaced", None))
+        for name, sh in (order if i % 2 == 0 else order[::-1]):
+            sess = placed_session(sh, device, config)
+            workload_s[name].append(placed_workload(sess)[0])
+            del sess
+            gc.collect()
+            if device == "cuda":
+                torch.cuda.empty_cache()
+    out.update(workload_s=workload_s, query_s=query_s,
+               seconds=time.perf_counter() - t0)
+    print(f"placed ({gpu}): shard_devices={shards}: {out['checks']} results "
+          f"bit-exact and equal to the unplaced run's; "
+          f"placed_unit_dispatches {out['placed_unit_dispatches']}, kernel "
+          f"calls on {n_streams} streams {json.dumps(streams)}; launches "
+          + json.dumps(launches), flush=True)
+    print(f"placed vs unplaced ({gpu}), alternating pairs, seconds: workload "
+          f"(Table-1 x 3 encodings + bitmap index, fresh devices) "
+          + json.dumps(workload_s) + f"; fold of 15 pair ANDs / XORs over {BITMAP_USERS} bits"
+          f" per materialize ({query_iters} each) " + json.dumps(query_s)
+          + f"; phase {out['seconds']:.2f} s", flush=True)
+    if "fold_profile" in out:
+        print(f"placed vs unplaced ({gpu}), one fold materialize under "
+              "torch.profiler: " + json.dumps(out["fold_profile"]),
+              flush=True)
+    return out
+
+
+# -- phase 9: the LM serving path at full width --------------------------------------
+
+def lm_phase(errs: dict, gpu: str, device: str = "cuda", cfg=None,
+             batch: int = LM_BATCH, prompt: int = LM_PROMPT,
+             new: int = LM_NEW, max_seq: int = LM_MAX_SEQ) -> dict:
+    """``Engine.from_seed`` at the arch's full width on the card: two greedy
+    ``generate`` calls give equal tokens, the prompts come back unchanged,
+    ``decode_calls`` counts ``new - 1`` per call, each decode step's logits
+    equal a full prefill's over the same prefix within ``LM_TOL`` of the
+    logits' scale; then the XOR delta of the whole parameter tree against a
+    copy with one layer perturbed round-trips bit for bit through the
+    ``bitwise_reduce`` kernel."""
+    from repro_torch.checkpoint import delta as delta_mod
+    from repro_torch.checkpoint import delta_apply, delta_encode, delta_sparsity
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import cuda
+    from repro_torch.models import lm
+    from repro_torch.models.specs import count_params, flatten, tree_map
+    from repro_torch.serve import Engine, ServeConfig
+
+    on_card = device == "cuda"
+    if on_card:
+        # float32 products in full float32 (the defaults, stated)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.cuda.reset_peak_memory_stats()
+    cfg = cfg or get_config(LM_ARCH)
+    t0 = time.perf_counter()
+    cuda.reset_launches()
+    eng = Engine.from_seed(cfg, seed=LM_SEED, device=device,
+                           serve_cfg=ServeConfig(max_seq=max_seq))
+    gen = torch.Generator(device=device)
+    gen.manual_seed(LM_SEED + 1)
+    prompts = torch.randint(1, cfg.vocab, (batch, prompt), generator=gen,
+                            device=device)
+    kept = prompts.clone()
+    if on_card:
+        sync()
+    init_s = time.perf_counter() - t0
+    gen_s = []
+    outs = []
+    for _ in range(2):
+        t = time.perf_counter()
+        outs.append(eng.generate(prompts, new))
+        if on_card:
+            sync()
+        gen_s.append(time.perf_counter() - t)
+    out = outs[1]
+    if not torch.equal(outs[0], out):
+        fail("lm: two greedy generate calls gave different tokens")
+    if not (torch.equal(prompts, kept) and torch.equal(out[:, :prompt], kept)):
+        fail("lm: the prompts did not come back unchanged")
+    if out.shape != (batch, prompt + new) or eng.decode_calls != 2 * (new - 1):
+        fail(f"lm: shape {tuple(out.shape)}, decode_calls {eng.decode_calls}")
+    compute = eng._compute
+    caches = lm.init_cache(cfg, batch, max_seq, device)
+    _, caches = lm.prefill(compute, cfg, {"tokens": out[:, :prompt]}, caches)
+    worst = 0.0
+    for i in range(new - 1):
+        pos = prompt + i
+        logits, caches = lm.decode_step(compute, cfg, out[:, pos:pos + 1],
+                                        caches, pos)
+        full, _ = lm.prefill(compute, cfg, {"tokens": out[:, :pos + 1]},
+                             lm.init_cache(cfg, batch, max_seq, device))
+        err = float((logits.float() - full.float()).abs().max()
+                    / full.float().abs().max())
+        worst = max(worst, err)
+        if not torch.equal(logits.argmax(-1)[:, 0], out[:, pos + 1]):
+            top = full.float()[:, 0].topk(2, dim=-1).values
+            gap = float((top[:, 0] - top[:, 1]).min()
+                        / full.float().abs().max())
+            if gap > LM_TOL:
+                fail(f"lm: decode step {i} picked another token than "
+                     f"generate at a top-2 gap of {gap:.3g}")
+    if not worst <= LM_TOL:
+        fail(f"lm: decode logits differ from a full prefill's by {worst:.3g}"
+             f" of the logits' scale (tolerance {LM_TOL})")
+    tokens = {"tokens": out[:, :prompt]}
+    step_tok = out[:, prompt:prompt + 1]
+
+    def prefill_fn():
+        return lm.prefill(compute, cfg, tokens,
+                          lm.init_cache(cfg, batch, max_seq, device))
+
+    def decode_fn():
+        return lm.decode_step(compute, cfg, step_tok, caches, prompt)
+
+    # CUDA-event time per call, and the card's kernel time in it
+    # (torch.profiler): their ratio is the card's busy share of the step
+    prefill_ms = decode_ms = prefill_dev_ms = decode_dev_ms = None
+    if on_card:
+        prefill_ms, prefill_dev_ms = time_ms(prefill_fn, 5), device_ms(
+            prefill_fn, 5)
+        decode_ms, decode_dev_ms = time_ms(decode_fn, 20), device_ms(
+            decode_fn, 20)
+
+    # the XOR delta of the whole tree against one perturbed layer
+    newer = tree_map(torch.clone, eng.params)
+    layer = newer["pattern"]["b0"]
+    noise = torch.Generator(device=device)
+    noise.manual_seed(LM_SEED + 2)
+    touched = 0
+    for path, leaf in flatten(layer):
+        row = leaf[0]                                   # repeat 0: one layer
+        row.add_(torch.randn(row.shape, generator=noise, device=device)
+                 * 1e-3)
+        touched += row.numel()
+    before = cuda.launches["bitwise_reduce"]
+    t = time.perf_counter()
+    with recording(delta_mod.BACKENDS[torch.device(device).type]) as rec:
+        delta = delta_encode(eng.params, newer)
+        back = delta_apply(eng.params, delta)
+        if on_card:
+            sync()
+    delta_s = time.perf_counter() - t
+    n_leaves = len(flatten(eng.params))
+    if on_card and cuda.launches["bitwise_reduce"] - before != 2 * n_leaves:
+        fail("lm: the delta did not launch bitwise_reduce once per leaf and "
+             "direction")
+    if rec.counts["bitwise_reduce"] != 2 * n_leaves:
+        fail(f"lm: {rec.counts['bitwise_reduce']} reduce calls for "
+             f"{n_leaves} leaves")
+    for (path, got), (_, want) in zip(flatten(back), flatten(newer)):
+        if got.device != want.device or not torch.equal(
+                got.reshape(-1).view(torch.int32),
+                want.reshape(-1).view(torch.int32)):
+            fail(f"lm: delta round trip of {path} is not bit-exact")
+    for path, words in flatten(delta):
+        if words.device.type != torch.device(device).type:
+            fail(f"lm: delta leaf {path} left the device")
+    checked = hold_recorded(rec.calls)
+    launches = dict(cuda.launches)
+    fold_errs(errs, checked, launches, "lm")
+    sparsity = delta_sparsity(delta)
+    del rec, delta, back, newer
+    n_params = count_params(lm.build_specs(cfg))
+    res = {"arch": cfg.name, "params": n_params, "layers": cfg.n_layers,
+           "batch": batch, "prompt": prompt, "new_tokens": new,
+           "max_seq": max_seq, "init_s": init_s, "generate_s": gen_s,
+           "tokens_per_s": batch * new / gen_s[1],
+           "prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms,
+           "prefill_device_ms": prefill_dev_ms,
+           "decode_device_ms_per_step": decode_dev_ms,
+           "decode_vs_prefill": worst, "delta_s": delta_s,
+           "delta_leaves": n_leaves, "perturbed_params": touched,
+           "delta_zero_word_share": sparsity, "launches": launches,
+           "kernel_checks": sorted(checked),
+           "peak_allocated_gib": (torch.cuda.max_memory_allocated() / 2 ** 30
+                                  if on_card else None),
+           "seconds": time.perf_counter() - t0}
+    print(f"lm ({gpu}): {cfg.name} ({n_params} parameters, {cfg.n_layers} "
+          f"layers, d_model {cfg.d_model}, vocab {cfg.vocab}) from seed "
+          f"{LM_SEED}: {batch} prompts of "
+          f"{prompt} tokens + {new} new, max_seq {max_seq}: tokens equal over "
+          f"two calls, decode_calls {eng.decode_calls}, decode within "
+          f"{worst:.3g} of a full prefill (tolerance {LM_TOL}); prefill "
+          f"{prefill_ms} ms (card busy {prefill_dev_ms} ms), decode "
+          f"{decode_ms} ms per step of {batch} tokens (card busy "
+          f"{decode_dev_ms} ms), generate {gen_s[1]:.3f} s ({res['tokens_per_s']:.1f} "
+          f"tokens/s); peak allocated {res['peak_allocated_gib']} GiB; XOR "
+          f"delta of {n_leaves} leaves bit-exact in {delta_s:.2f} s, zero "
+          f"words {sparsity:.6f}; phase {res['seconds']:.2f} s; launches "
+          + json.dumps(launches), flush=True)
+    res["ring_wrap"] = lm_ring_wrap(eng, gpu, batch)
+    del eng
+    return res
+
+
+def lm_ring_wrap(eng, gpu: str, batch: int,
+                 steps: int = LM_WRAP_STEPS) -> dict:
+    """A second engine over ``eng``'s weights whose ``max_seq`` (twice the
+    sliding window) lets each ``swa`` layer's KV ring wrap: a prompt of
+    ``window - steps`` tokens and ``2 * steps`` new ones, so the last
+    ``steps`` decode steps overwrite the ring's oldest slots.  Teacher-forced
+    on the generated tokens, each decode step's logits must equal the
+    logits at the same position of one causal forward pass over the tokens
+    (padded to a multiple of the window, which the banded prefill needs;
+    the padding comes after every position compared), within ``LM_TOL`` of
+    the logits' scale."""
+    from repro_torch.models import lm
+    from repro_torch.models.layers import embed_lookup
+    from repro_torch.serve import Engine, ServeConfig
+
+    cfg, device = eng.cfg, eng.device
+    window = max(b.window for b in cfg.pattern + cfg.tail if b.kind == "swa")
+    prompt, new, max_seq = window - steps, 2 * steps, 2 * window
+    t0 = time.perf_counter()
+    wrap = Engine(cfg, eng.params, ServeConfig(max_seq=max_seq))
+    gen = torch.Generator(device=device)
+    gen.manual_seed(LM_SEED + 3)
+    prompts = torch.randint(1, cfg.vocab, (batch, prompt), generator=gen,
+                            device=device)
+    out = wrap.generate(prompts, new)
+    if (out.shape != (batch, prompt + new) or wrap.decode_calls != new - 1
+            or not torch.equal(out[:, :prompt], prompts)):
+        fail(f"lm ring wrap: shape {tuple(out.shape)}, decode_calls "
+             f"{wrap.decode_calls}")
+    compute = wrap._compute
+    seq = -(-out.shape[1] // window) * window
+    padded = torch.nn.functional.pad(out, (0, seq - out.shape[1]))
+    with torch.no_grad():
+        x = embed_lookup(compute["embed"], padded).to(torch.bfloat16)
+        x = lm._run_stack(compute, x, cfg,
+                          positions=torch.arange(seq, device=device),
+                          caches=lm.init_cache(cfg, batch, seq, device))
+        full = lm._logits(compute, cfg, x[:, prompt:prompt + new - 1]).float()
+    caches = lm.init_cache(cfg, batch, max_seq, device)
+    _, caches = lm.prefill(compute, cfg, {"tokens": out[:, :prompt]}, caches)
+    worst = {"before_wrap": 0.0, "after_wrap": 0.0}
+    for i in range(new - 1):
+        pos = prompt + i
+        logits, caches = lm.decode_step(compute, cfg, out[:, pos:pos + 1],
+                                        caches, pos)
+        want = full[:, i]
+        err = float((logits[:, 0].float() - want).abs().max()
+                    / want.abs().max())
+        part = "after_wrap" if pos >= window else "before_wrap"
+        worst[part] = max(worst[part], err)
+        if not torch.equal(logits.argmax(-1)[:, 0], out[:, pos + 1]):
+            top = want.topk(2, dim=-1).values
+            gap = float((top[:, 0] - top[:, 1]).min() / want.abs().max())
+            if gap > LM_TOL:
+                fail(f"lm ring wrap: decode step {i} picked another token "
+                     f"than generate at a top-2 gap of {gap:.3g}")
+    if not max(worst.values()) <= LM_TOL:
+        fail(f"lm ring wrap: decode logits differ from the forward pass's "
+             f"by {worst} of the logits' scale (tolerance {LM_TOL})")
+    res = {"window": window, "prompt": prompt, "new_tokens": new,
+           "max_seq": max_seq, "decode_steps_after_wrap": prompt + new - 1
+           - window, "decode_vs_forward": worst,
+           "seconds": time.perf_counter() - t0}
+    print(f"lm ring wrap ({gpu}): {cfg.name}, window {window}: {batch} "
+          f"prompts of {prompt} tokens + {new} new at max_seq {max_seq}, "
+          f"{res['decode_steps_after_wrap']} decode steps past the wrap; "
+          f"decode within {worst['before_wrap']:.3g} / "
+          f"{worst['after_wrap']:.3g} (before / after the wrap) of one "
+          f"forward pass (tolerance {LM_TOL}); {res['seconds']:.2f} s",
+          flush=True)
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1231,10 +1730,19 @@ def main() -> int:
     apps = applications_phase(errs, gpu)
     require_launches(apps["launches"], [k for k, n in APPS_LAUNCHES.items()
                                         if n], "applications")
+    gc.collect()
+    torch.cuda.empty_cache()
+    placed = placed_phase(errs, gpu)
+    require_launches(placed["launches"], KERNELS, "placed")
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm_run = lm_phase(errs, gpu)
+    require_launches(lm_run["launches"], ("bitwise_reduce",), "lm")
     per_path = {"main": launches, "serving": serve["launches"],
                 "recovery": recovery["launches"],
                 "endurance": endurance["launches"],
-                "applications": apps["launches"]}
+                "applications": apps["launches"],
+                "placed": placed["launches"], "lm": lm_run["launches"]}
     total = {k: sum(p[k] for p in per_path.values()) for k in KERNELS}
 
     kernels = []
@@ -1248,7 +1756,8 @@ def main() -> int:
                         "library_ms": tm["library_ms"]})
     record.update(main_path=run, launches=per_path, kernels=kernels,
                   timing=timing, serving=serve, recovery=recovery,
-                  endurance=endurance, applications=apps)
+                  endurance=endurance, applications=apps, placed=placed,
+                  lm=lm_run)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))

@@ -21,6 +21,11 @@ DAG into a static :class:`ExecPlan`, exactly as the JAX package does:
    signature.  PyTorch runs eagerly, so the runner is a plain Python loop
    over backend calls; building it counts as the one trace, so the
    ``misses``/``traces`` counters keep the JAX package's meaning.
+6. **Placement**: when the device's arena maps its shards onto entries
+   (``FlashDevice(shard_devices=...)``), the placed runner issues each
+   die-local unit on its shard's stream and each controller combine on
+   the compute stream after the events of its producers; the placement
+   layout ends the cache key, so placed and unplaced runners never mix.
 
 Every lowered plan passes the session's static verifier
 (:mod:`repro_torch.verify`) before any dispatch; with a tracer attached the
@@ -651,6 +656,28 @@ class Executor:
         """Passes a fused spec needs at ``max_fused_operands`` per pass."""
         return -(-n_operands // self.max_fused_operands)
 
+    def _placement_layout(self, plan: ExecPlan) -> Optional[tuple]:
+        """Placement layout of a plan on this session's device, or ``None``
+        when the arena's shards are unmapped.  Per sense group and per fused
+        step, ``(device, stream slot)``: a single-die unit runs on its
+        shard's entry, a cross-die unit on the compute device's stream
+        (slot ``None``).  The layout ends the runner-cache key: a placed
+        runner bakes in which stream each unit runs on, so it must never
+        serve unplaced inputs, or dies mapped onto other slots."""
+        arena = self.session.device.arena
+        if not arena.devices:
+            return None
+
+        def unit(dies: Tuple[int, ...]) -> tuple:
+            if len(dies) == 1:
+                return str(arena.device_of(dies[0])), arena.slot_of(dies[0])
+            return str(arena.compute_device()), None
+
+        return (tuple(unit(g.dies) for g in plan.groups),
+                tuple(unit(st.fused.dies) for st in plan.steps
+                      if st.fused is not None),
+                str(arena.compute_device()))
+
     # -- internals ---------------------------------------------------------------
     def _execute_many(self, nodes: List[Node], n_bits_list: List[int],
                       popcounts: Tuple[bool, ...],
@@ -665,11 +692,14 @@ class Executor:
         # or dispatch; memoized per signature so cache-hit plans pay ~nothing
         sig = plan.signature(sess.backend.name)
         sess.verify_lowered_plan(plan, sig)
-        self._account(plan, attributed=rids is not None)
+        layout = self._placement_layout(plan)
+        self._account(plan, placed=layout is not None,
+                      attributed=rids is not None)
         if sess.verifier.enabled and sess.device.ledger.mode != "independent":
             # transfers may overlap only LATER waves' work in the step log
             check_overlap_consistency(sess.device.ledger, plan=plan)
-        key = (self.max_fused_operands, sig, popcounts)
+        # rids are not keyed: isomorphic batches replay one runner
+        key = (self.max_fused_operands, sig, popcounts, layout)
         if tracer is not None:
             tracer.instant("cache", "executable-hit" if key in self.cache
                            else "executable-miss",
@@ -679,24 +709,28 @@ class Executor:
         def build():
             with traced(tracer, "compile", "build-executable",
                         waves=len(plan.waves)):
-                return self._build(plan, popcounts)
+                return self._build(plan, popcounts, layout)
 
         fn = self.cache.get(key, build)
         if tracer is not None and self.cache.evictions > evictions0:
             tracer.instant("cache", "executable-evicted",
                            evicted=self.cache.evictions - evictions0)
         dev = sess.device
-        # the shard gathers run outside the cached runner, one per die shard
+        # the shard gathers run outside the cached runner, one per die shard;
+        # placed, a die-local gather stays on its shard's stream
+        place = layout is None
         with traced(tracer, "dispatch", "dispatch-waves",
                     waves=len(plan.waves)):
-            group_vth = tuple(dev.vth_stack(g.wls) for g in plan.groups)
-            fused_vth = tuple(dev.vth_stack(st.fused.wls)
+            group_vth = tuple(dev.vth_stack(g.wls, place=place)
+                              for g in plan.groups)
+            fused_vth = tuple(dev.vth_stack(st.fused.wls, place=place)
                               for st in plan.steps if st.fused is not None)
             masks = tuple(sess.tail_mask(nb, w) for nb, w
                           in zip(n_bits_list, plan.all_root_words))
             return fn(group_vth, fused_vth, masks)
 
-    def _account(self, plan: ExecPlan, attributed: bool = False) -> None:
+    def _account(self, plan: ExecPlan, placed: bool = False,
+                 attributed: bool = False) -> None:
         """Wave-batched ledger + counter updates: ONE parallel die step and
         one channel step per schedule wave (concurrent per-die groups in a
         wave overlap in the ledger's die-parallel makespan), each labeled
@@ -769,6 +803,8 @@ class Executor:
         if attributed:
             m.counter("coalesced_sense_groups").add(n_coalesced)
             m.counter("waves_shared").add(n_shared_waves)
+        if placed:
+            m.counter("placed_unit_dispatches").add(len(plan.groups) + n_fused)
         m.counter("in_flash_senses").add(plan.senses)
         m.counter("sense_items").add(plan.items)
         m.counter("sense_batches").add(len(plan.groups) + n_fused)
@@ -782,80 +818,138 @@ class Executor:
             1 for st in plan.steps if len(st.args) > 1 or st.invert
             or st.fused is not None))
 
-    def _build(self, plan: ExecPlan, popcounts: Tuple[bool, ...]):
-        """Close an eager runner over the static plan.  Runtime inputs: the
-        gathered per-group / per-fused-step Vth stacks and one packed padding
-        mask per batch root.  Returns a tuple of outputs, one per root.
+    def _build(self, plan: ExecPlan, popcounts: Tuple[bool, ...],
+               layout: Optional[tuple]):
+        """Close an eager wave runner over the static plan.  Runtime
+        inputs: the gathered per-group / per-fused-step Vth stacks and one
+        packed padding mask per batch root.  Returns a tuple of outputs,
+        one per root.  Building it counts as the one trace.
 
-        The closure captures only the (stateless) backend, the static plan
-        and the plan's constants — never the executor/session, which would
-        pin dead sessions in the device-lifetime shared cache.  Building it
-        counts as the one trace."""
+        Placed (``layout`` from :meth:`_placement_layout`), each single-die
+        sense group and fused step is issued on its shard's stream, where
+        its rows were gathered, and the next unit is issued without
+        waiting, so die-disjoint units of a wave may overlap on the card; a
+        cross-die unit runs on the compute stream.  After a wave's units,
+        one event per stream marks them; partials reach the compute stream
+        only where a controller combine or a root consumes them: the
+        compute stream waits for their stream's event, and the partial is
+        marked as used there.  The single-root fused popcount keeps its
+        fast path on the shard's stream.  Unplaced (``layout`` None), every
+        unit's slot is None, and the arena's placement methods do nothing:
+        everything runs on the current stream.
+
+        The closure captures the backend, the static plan and the arena's
+        bound placement methods, never the executor/session (the runner
+        cache is device-shared and must not pin dead sessions)."""
         backend = self.session.backend
         max_ops = self.max_fused_operands
+        arena = self.session.device.arena
+        on_slot, ready = arena.on_slot, arena.ready
+        to_compute, colocate = arena.to_compute, arena.colocate
         self._traces.n += 1
         roots = plan.all_roots
-        # popcount folds into the root kernel only on a single-root plan
-        # whose root IS the last step and that step fused (a fused root
-        # consumes raw wordlines, so nothing else in the plan feeds it)
-        fuse_pc = (len(roots) == 1 and popcounts[0] and bool(plan.steps)
-                   and plan.steps[-1].out == plan.root
-                   and plan.steps[-1].fused is not None)
-        fused_pos = {si: k for k, si in enumerate(
-            si for si, st in enumerate(plan.steps) if st.fused is not None)}
+        fuse_pc = _root_fuses_popcount(plan, popcounts)
+        fused_pos = _fused_positions(plan)
+        if layout is None:
+            group_slot = [None] * len(plan.groups)
+            fused_slot = dict.fromkeys(fused_pos)
+        else:
+            group_slot = [slot for _, slot in layout[0]]
+            fused_slot = dict(zip(fused_pos, (slot for _, slot in layout[1])))
 
         def fused_reduce(st: CombineStep, vth: torch.Tensor) -> torch.Tensor:
-            """Fused sense->reduce, split into passes of ``max_ops``
-            operands when the stack holds more."""
-            f = st.fused
-            if f.n_operands <= max_ops:
-                return backend.sense_reduce(vth, f.plan, op=st.op,
-                                            invert=st.invert)
-            parts = [backend.sense_reduce(vth[s:s + max_ops], f.plan,
-                                          op=st.op, invert=False)
-                     for s in range(0, f.n_operands, max_ops)]
-            return backend.reduce(torch.stack(parts), st.op, invert=st.invert)
+            return _fused_reduce(backend, max_ops, st, vth)
 
         def run(group_vth, fused_vth, masks):
             partials: Dict[int, torch.Tensor] = {}
+            events: Dict[int, object] = {}    # pid -> event after its producer
             for wave in plan.waves:
+                made: Dict[Optional[int], List[int]] = {}  # slot -> its pids
                 for gi in wave.groups:
                     g = plan.groups[gi]
-                    packed = backend.sense(group_vth[gi], g.plan)
+                    slot = group_slot[gi]
+                    with on_slot(slot):
+                        packed = backend.sense(group_vth[gi], g.plan)
                     for pid, (s, e) in g.spans():
                         partials[pid] = packed[s:e].reshape(-1)
+                        made.setdefault(slot, []).append(pid)
                 for si in wave.fused:
                     st = plan.steps[si]
                     f = st.fused
+                    slot = fused_slot[si]
                     vth = fused_vth[fused_pos[si]].reshape(
                         f.n_operands, f.n_pages, -1)
                     if fuse_pc and st.out == plan.root:
-                        mask2 = masks[0].reshape(f.n_pages, -1)
-                        if f.n_operands <= max_ops:
-                            counts = backend.sense_reduce_popcount(
-                                vth, f.plan, mask2, op=st.op,
-                                invert=st.invert)
-                        else:
-                            words = fused_reduce(st, vth).reshape(
-                                f.n_pages, -1) & mask2
-                            counts = backend.popcount(words)
-                        return (counts.sum(dtype=torch.int32),)
-                    partials[st.out] = fused_reduce(st, vth).reshape(-1)
+                        mask = colocate(masks[0], slot)
+                        with on_slot(slot):
+                            mask2 = mask.reshape(f.n_pages, -1)
+                            if f.n_operands <= max_ops:
+                                counts = backend.sense_reduce_popcount(
+                                    vth, f.plan, mask2, op=st.op,
+                                    invert=st.invert)
+                            else:
+                                words = fused_reduce(st, vth).reshape(
+                                    f.n_pages, -1) & mask2
+                                counts = backend.popcount(words)
+                            total = counts.sum(dtype=torch.int32)
+                            done = ready(slot)
+                        return (to_compute(total, done),)
+                    with on_slot(slot):
+                        partials[st.out] = fused_reduce(st, vth).reshape(-1)
+                    made.setdefault(slot, []).append(st.out)
+                for slot, pids in made.items():
+                    done = ready(slot)       # one event per stream and wave
+                    for pid in pids:
+                        events[pid] = done
                 for ci in wave.combines:
                     st = plan.steps[ci]
                     if len(st.args) == 1 and not st.invert:
                         partials[st.out] = partials[st.args[0]]
+                        events[st.out] = events[st.args[0]]
                     else:
-                        stack = torch.stack([partials[a] for a in st.args])
+                        # controller combine on the compute stream, after
+                        # the shard streams that made its operands
+                        stack = torch.stack([to_compute(partials[a], events[a])
+                                             for a in st.args])
                         out = backend.reduce(
                             stack.reshape(len(st.args), 1, -1),
                             st.op, invert=st.invert)
                         partials[st.out] = out.reshape(-1)
+                        events[st.out] = None
             outs = []
             for root, pc, mask in zip(roots, popcounts, masks):
-                out = partials[root] & mask
+                out = to_compute(partials[root], events[root]) & mask
                 outs.append(backend.popcount(out.reshape(1, -1))[0]
                             if pc else out)
             return tuple(outs)
 
         return run
+
+
+def _root_fuses_popcount(plan: ExecPlan, popcounts: Tuple[bool, ...]) -> bool:
+    """Whether the popcount folds into the root kernel: only on a
+    single-root plan whose root IS the last step and that step fused (a
+    fused root consumes raw wordlines, so nothing else in the plan feeds
+    it)."""
+    return (len(plan.all_roots) == 1 and popcounts[0] and bool(plan.steps)
+            and plan.steps[-1].out == plan.root
+            and plan.steps[-1].fused is not None)
+
+
+def _fused_positions(plan: ExecPlan) -> Dict[int, int]:
+    """Step index -> position among the plan's fused steps."""
+    return {si: k for k, si in enumerate(
+        si for si, st in enumerate(plan.steps) if st.fused is not None)}
+
+
+def _fused_reduce(backend, max_ops: int, st: CombineStep,
+                  vth: torch.Tensor) -> torch.Tensor:
+    """Fused sense->reduce, split into passes of ``max_ops`` operands when
+    the stack holds more."""
+    f = st.fused
+    if f.n_operands <= max_ops:
+        return backend.sense_reduce(vth, f.plan, op=st.op, invert=st.invert)
+    parts = [backend.sense_reduce(vth[s:s + max_ops], f.plan, op=st.op,
+                                  invert=False)
+             for s in range(0, f.n_operands, max_ops)]
+    return backend.reduce(torch.stack(parts), st.op, invert=st.invert)

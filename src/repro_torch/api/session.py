@@ -59,6 +59,7 @@ _SESSION_COUNTERS = (
     ("sense_waves", "topology-schedule waves dispatched"),
     ("megakernel_calls", "fused sense->reduce(->popcount) passes"),
     ("tiled_megakernel_splits", "fused chains split into several passes"),
+    ("placed_unit_dispatches", "wave units issued on their shard's entry"),
     ("host_drain_submits", "async device->host transfers enqueued"),
     ("host_drain_blocks", "drain-queue backpressure stalls (queue full)"),
     ("coalesced_sense_groups", "batch sense groups shared by >1 request"),
@@ -453,6 +454,7 @@ class ComputeSession:
             "max_concurrent_dies": self.max_concurrent_dies,
             "megakernel_calls": self.megakernel_calls,
             "tiled_megakernel_splits": self.tiled_megakernel_splits,
+            "placed_unit_dispatches": self.placed_unit_dispatches,
             "host_drain": {"submits": self.host_drain_submits,
                            "blocks": self.host_drain_blocks,
                            "pending": len(self.host_queue),

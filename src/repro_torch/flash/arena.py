@@ -6,9 +6,17 @@ a batched sense is one ``index_select`` of row indices.
 
 :class:`ShardedVthArena` keeps one lazily-created :class:`VthArena` per die
 that holds data, addressed by ``(die, slot)`` refs, so the executor's
-per-die sense groups each gather from their own shard.  All shards live on
-one torch device; pinning shards to several devices (the JAX package's
-``devices=``) is not ported yet.
+per-die sense groups each gather from their own shard.
+
+``devices=`` maps shards onto a list of torch devices round-robin (die
+``d`` on entry ``d % len(devices)``; entries may repeat).  Each CUDA entry
+owns its own stream, so on one card the die-disjoint units of a wave run
+on distinct streams and may overlap; on the CPU entries are ``"cpu"`` and
+there are no streams.  Data crossing streams is ordered with events
+(``ready`` / ``to_compute``) and ``wait_stream``, never by synchronizing
+the card, and every tensor one stream makes and another consumes is
+marked with ``record_stream`` so the caching allocator does not reuse it
+early.
 
 Each shard grows geometrically (rows double, never shrink) and recycles
 freed slots LIFO, in the same order as the JAX package's arena, so the same
@@ -17,7 +25,8 @@ arena, writes update the buffer in place, which saves a copy of it.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Mapping, Sequence, Tuple
+import contextlib
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -130,16 +139,39 @@ class ShardedVthArena:
     Shards are created lazily on first allocation for a die (a 128-die SSD
     config must not eagerly allocate 128 buffers), each an independent
     :class:`VthArena` with its own free list.
+
+    ``device`` is the compute device.  ``devices`` (a list of torch
+    devices, or ``"auto"`` for one entry per visible card) maps the shards
+    onto entries round-robin; each CUDA entry gets its own stream (its
+    "slot").  Unmapped (``None``), every shard lives on ``device`` and
+    everything runs on the current stream.
     """
 
     def __init__(self, page_bits: int, n_dies: int = 1, init_slots: int = 16,
-                 *, device: "torch.device | str"):
+                 *, device: "torch.device | str", devices=None):
         if n_dies < 1:
             raise ValueError(n_dies)
         self.page_bits = int(page_bits)
         self.n_dies = int(n_dies)
         self.init_slots = int(init_slots)
         self.device = torch.device(device)
+        if isinstance(devices, str) and devices == "auto":
+            if self.device.type != "cuda" or not torch.cuda.is_available():
+                raise ValueError('devices="auto" maps shards onto the visible '
+                                 'cards; on the CPU pass a list of "cpu"')
+            devices = [torch.device("cuda", i)
+                       for i in range(torch.cuda.device_count())]
+        self.devices: Optional[List[torch.device]] = (
+            [torch.device(d) for d in devices] if devices else None)
+        self._streams: List[Optional["torch.cuda.Stream"]] = []
+        for d in self.devices or ():
+            if d.type != self.device.type:
+                raise ValueError(f"shard device {d} is not a {self.device.type}"
+                                 " device like the compute device")
+            # one stream per entry: a repeated entry is another stream on the
+            # same card, so die-disjoint units can overlap on it
+            self._streams.append(torch.cuda.Stream(device=d)
+                                 if d.type == "cuda" else None)
         self._shards: Dict[int, VthArena] = {}
 
     # -- shards ---------------------------------------------------------------
@@ -150,7 +182,8 @@ class ShardedVthArena:
         arena = self._shards.get(die)
         if arena is None:
             arena = self._shards[die] = VthArena(
-                self.page_bits, self.init_slots, device=self.device)
+                self.page_bits, self.init_slots,
+                device=self.device_of(die) or self.device)
         return arena
 
     @property
@@ -217,13 +250,97 @@ class ShardedVthArena:
             self.shard(die).write([refs[i][1] for i in idxs],
                                   rows.index_select(0, pos))
 
-    def gather(self, refs: Sequence[SlotRef]) -> torch.Tensor:
+    # -- placement ------------------------------------------------------------
+    def slot_of(self, die: int) -> Optional[int]:
+        """The entry (and stream slot) pinning ``die``'s shard, or None
+        when the shards are unmapped."""
+        return int(die) % len(self.devices) if self.devices else None
+
+    def device_of(self, die: int) -> Optional[torch.device]:
+        """The torch device holding ``die``'s shard (None when unmapped)."""
+        return self.devices[self.slot_of(die)] if self.devices else None
+
+    def compute_device(self) -> Optional[torch.device]:
+        """The device combines and results run on (None when unmapped)."""
+        return self.device if self.devices else None
+
+    def shard_devices(self) -> Optional[List[torch.device]]:
+        """The device backing each created shard (None when unmapped)."""
+        if not self.devices:
+            return None
+        return [self.device_of(d) for d in sorted(self._shards)]
+
+    def stream(self, slot: Optional[int]) -> "Optional[torch.cuda.Stream]":
+        """The stream of entry ``slot`` (None for the compute stream, a CPU
+        entry, or unmapped shards)."""
+        return None if slot is None or not self.devices else self._streams[slot]
+
+    def on_slot(self, slot: Optional[int]):
+        """Context that makes entry ``slot``'s stream current (a no-op
+        without a stream)."""
+        s = self.stream(slot)
+        return contextlib.nullcontext() if s is None else torch.cuda.stream(s)
+
+    def ready(self, slot: Optional[int]) -> "Optional[torch.cuda.Event]":
+        """An event marking the work issued so far on entry ``slot``'s
+        stream (None without a stream)."""
+        s = self.stream(slot)
+        if s is None:
+            return None
+        ev = torch.cuda.Event()
+        ev.record(s)
+        return ev
+
+    def to_compute(self, x: torch.Tensor,
+                   ready: "Optional[torch.cuda.Event]" = None) -> torch.Tensor:
+        """Hand ``x`` to the compute device's current stream: the stream
+        waits for ``ready`` (the event after the side-stream work that made
+        ``x``), and ``x`` is marked as used there."""
+        if ready is not None:
+            for dev in {x.device, self.device}:
+                cur = torch.cuda.current_stream(dev)
+                cur.wait_event(ready)
+                if dev == x.device:
+                    x.record_stream(cur)
+        return x.to(self.device) if self.devices else x
+
+    def colocate(self, x: torch.Tensor, slot: Optional[int]) -> torch.Tensor:
+        """Hand ``x``, made on the current stream, to entry ``slot``'s
+        stream and device (the placed runner ships the padding mask to a
+        shard-local fused popcount this way)."""
+        s = self.stream(slot)
+        if s is not None:
+            s.wait_stream(torch.cuda.current_stream(x.device))
+            x.record_stream(s)
+        if slot is None or not self.devices:
+            return x
+        return x.to(self.devices[slot])
+
+    def gather(self, refs: Sequence[SlotRef], *,
+               place: bool = True) -> torch.Tensor:
         """(len(refs), page_bits) rows — one gather per touched shard, in
-        request order."""
+        request order.
+
+        ``place=True`` (the default) lands the rows on the compute device
+        and stream.  ``place=False`` leaves a die-local gather on its own
+        shard's device, issued on that shard's stream after the work the
+        current stream has queued (the rows' writes), so the placed runner
+        senses each die's pages where they live.  Cross-die gathers always
+        concatenate on the compute device."""
         refs = list(refs)
         dies = {int(d) for d, _ in refs}
         if len(dies) == 1:
-            return self.shard(dies.pop()).gather([s for _, s in refs])
+            die = dies.pop()
+            shard = self.shard(die)
+            slots = [s for _, s in refs]
+            s = None if place else self.stream(self.slot_of(die))
+            if s is None:
+                local = shard.gather(slots)
+                return local.to(self.device) if place else local
+            s.wait_stream(torch.cuda.current_stream(shard.device))
+            with torch.cuda.stream(s):
+                shard.buf.record_stream(s)
+                return shard.gather(slots)
         by_die: Dict[int, List[int]] = {}
         pos: List[Tuple[int, int]] = []       # (die, index within die gather)
         for die, slot in refs:
@@ -233,7 +350,7 @@ class ShardedVthArena:
         parts, offs, off = [], {}, 0
         for die in sorted(by_die):
             offs[die] = off
-            parts.append(self.shard(die).gather(by_die[die]))
+            parts.append(self.shard(die).gather(by_die[die]).to(self.device))
             off += len(by_die[die])
         stacked = torch.cat(parts, dim=0)
         perm = [offs[d] + i for d, i in pos]

@@ -46,8 +46,11 @@ class FlashDevice:
     """One simulated multi-plane NAND chip set (the §6 SSD's raw layer).
 
     ``device`` is the torch device holding the Vth arena (``"cuda"`` or
-    ``"cpu"``); placing shards on several devices (``shard_devices``) is
-    not ported yet.  Programming keeps a copy of each wordline's page bits
+    ``"cpu"``) and running combines.  ``shard_devices`` (a list of torch
+    devices, entries may repeat, or ``"auto"`` for one entry per visible
+    card) pins die ``d``'s shard to entry ``d % len(shard_devices)``; each
+    CUDA entry owns its own stream, so on one card ``["cuda"] * 4`` runs
+    die-disjoint units on four streams (the placed runner).  Programming keeps a copy of each wordline's page bits
     (uint8, one byte per cell and page, on the same device) beside its Vth
     row, never a view of the caller's tensors: the oracles
     :meth:`stored_operands` and :meth:`expected` read them.
@@ -61,10 +64,6 @@ class FlashDevice:
                  tlc_chip: TLCChipModel | None = None,
                  exec_cache_capacity: Optional[int] = ExecutableCache.DEFAULT_CAPACITY,
                  device: "torch.device | str" = "cuda"):
-        if shard_devices is not None:
-            raise NotImplementedError(
-                "placing arena shards on several devices (shard_devices, "
-                "the placed runner) is not ported yet; see ROADMAP queue 1")
         self.device = torch.device(device)
         self.chip = chip or vth_model.get_chip_model()
         # 8-state chip model backing TLC and reduced-MLC wordlines (§7)
@@ -74,7 +73,8 @@ class FlashDevice:
         self.energy = energy or EnergyModel()
         self._page_bits = self.config.page_bits
         self.arena = ShardedVthArena(self._page_bits, n_dies=self.config.dies,
-                                     device=self.device)
+                                     device=self.device,
+                                     devices=shard_devices)
         self._slot_of: Dict[WordlineKey, SlotRef] = {}
         # stored page bits per wordline: (one tensor per role, row), role
         # order (2 for MLC/reduced, 3 for TLC)
@@ -109,10 +109,14 @@ class FlashDevice:
         return self.die_of_plane(plane) // self.config.dies_per_channel
 
     # -- arena access (the executor's input surface) --------------------------
-    def vth_stack(self, wls: List[WordlineKey]) -> torch.Tensor:
+    def vth_stack(self, wls: List[WordlineKey], *,
+                  place: bool = True) -> torch.Tensor:
         """(N, page_bits) Vth of a wordline batch — one gather per touched
-        die shard."""
-        return self.arena.gather([self._slot_of[wl] for wl in wls])
+        die shard.  ``place=False`` leaves a die-local gather on its
+        shard's device and stream (the placed runner); the default lands
+        it on the compute device and stream."""
+        return self.arena.gather([self._slot_of[wl] for wl in wls],
+                                 place=place)
 
     def load_vth(self, rows_by_die: Mapping[int, np.ndarray]) -> None:
         """Load per-die Vth rows exported from a reference arena's shards

@@ -137,7 +137,7 @@ def test_arena_gather_and_load_shards():
     assert torch.equal(arena.gather(refs), rows * 2)
     with pytest.raises(ValueError, match="do not fit"):
         arena.load_shards({0: np.zeros((99, 4096), np.float32)})
-    with pytest.raises(NotImplementedError, match="shard_devices"):
+    with pytest.raises(ValueError, match="auto"):   # "auto" means the cards
         FlashDevice(config=SSDConfig(**CFG), device="cpu", shard_devices="auto")
 
 
