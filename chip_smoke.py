@@ -87,7 +87,24 @@
    weights at max_seq 1024 (twice the 512-token window) serves prompts of
    480 tokens with 64 new, so each sliding-window ring wraps after 32
    steps; every decode step's logits, teacher-forced, equal those of one
-   forward pass over the tokens within the same tolerance.
+   forward pass over the tokens within the same tolerance.  Then, each
+   from a fresh ``Engine.from_seed`` at its published widths
+   (``LM_ARCHS``): mamba2-130m (24 ``ssd`` layers; 4 x 64 tokens + 32
+   new, then the XOR delta of its tree), recurrentgemma-9b (38 layers of
+   ``rglru`` and ``swa``; 4 x 64 + 16), mixtral-8x7b cut to 4 of its 32
+   layers (4 x 64 + 16 at capacity factor 4.0, where nothing is dropped,
+   and the share of dropped assignments at the published 1.25),
+   whisper-tiny (``encdec_prefill`` of 4 x 1536 frames, 32 greedy steps
+   from token 1, then the XOR delta) and internvl2-26b cut to 4 of its 48
+   layers (a prefill of 4 x 256 patch embeddings, 16 greedy tokens).
+   Each: tokens equal over two runs; each step, replayed, picks the
+   served token; in float32 (the master weights) each decode step within
+   1e-3 of one full pass over the same tokens; in bfloat16 each served
+   step's gap to a bfloat16 full pass is reported (at random weights
+   bfloat16 rounding alone moves these stacks' logits by more than 2e-2),
+   with the bfloat16 pass's distance from the float32 one.  Prints prefill and decode
+   times, the card's busy share of a decode step, tokens/s and the peak
+   allocated memory.
 10. Prints the ``kernels`` JSON line (launches summed over the seven
    paths), then a last line ``{"ok": true, "device": {...}}``.
 
@@ -148,6 +165,7 @@ PLACED_SEED = 5
 PLACED_PAIRS = 3                     # placed / unplaced workload pairs, timed
 QUERY_PAIRS = 8                      # ... and pairs of the fold query
 QUERY_ITERS = 10                     # materializes per timed query turn
+PROFILE_TRIES = 3                    # torch.profiler sessions per measurement
 LM_ARCH = "gemma3-1b"                # at its published widths and depth
 LM_BATCH = 4
 LM_PROMPT = 64
@@ -160,6 +178,28 @@ LM_TOL = 2e-2
 #: decode steps before and after each sliding-window ring wraps, in the LM
 #: phase's second run (prompt = window - LM_WRAP_STEPS, max_seq 2 * window)
 LM_WRAP_STEPS = 32
+#: float32 decode steps against a float32 full pass, as a share of the
+#: logits' scale (the float32 tolerance of tests/test_torch_lm_archs.py)
+LM_F32_TOL = 1e-3
+#: the LM phase's runs after gemma3-1b, each at its published widths:
+#: mixtral-8x7b and internvl2-26b cut in depth to fit one card; whisper's
+#: 1500 encoder frames rounded up to 1536, a multiple of flash_attention's
+#: 512-token kv block; mixtral checked at a capacity factor that drops
+#: nothing (n_experts / top_k), its drops counted at the published 1.25.
+#: mamba2's bfloat16 decode gap is reported, not gated: at its published
+#: width its bfloat16 logits carry rounding noise past LM_TOL (its
+#: bfloat16 full pass lies about 0.06 of the scale from its float32 one,
+#: ``bf16_full_vs_f32``); its float32 decode is gated
+LM_ARCHS = {
+    "mamba2-130m": dict(batch=4, prompt=64, new=32, max_seq=256, delta=True,
+                        bf16_gated=False),
+    "recurrentgemma-9b": dict(batch=4, prompt=64, new=16, max_seq=256),
+    "mixtral-8x7b": dict(batch=4, prompt=64, new=16, max_seq=256, repeats=4,
+                         capacity_factor=4.0, drops_at=1.25),
+    "whisper-tiny": dict(batch=4, frames=1536, new=32, delta=True),
+    "internvl2-26b": dict(batch=4, patches=256, new=16, max_seq=512,
+                          repeats=4),
+}
 
 KERNELS = {
     "mlc_sense": ("src/repro_torch/csrc/mlc_sense.cu",
@@ -219,19 +259,39 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int) -> float:
-    """Mean milliseconds per call that the card spends in kernels (all the
-    kernels ``fn`` launches), from ``torch.profiler``."""
+def card_profile(fn, what: str):
+    """``fn()`` under ``torch.profiler``: the profiler of the first of
+    PROFILE_TRIES sessions that recorded a kernel on the card, or None.
+    A CUPTI trace can come back empty; the device times read from it are
+    reported and never checked, so an empty trace leaves them "not
+    measured" (None) instead of failing the run."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            sync()
+        if any(e.device_type == DeviceType.CUDA for e in prof.events()):
+            return prof
+    print(f"{what}: torch.profiler recorded no kernel on the card in "
+          f"{PROFILE_TRIES} sessions; its device time is not measured",
+          file=sys.stderr, flush=True)
+    return None
+
+
+def device_ms(fn, iters: int, what: str) -> "float | None":
+    """Mean milliseconds per call that the card spends in kernels (all the
+    kernels ``fn`` launches), from ``torch.profiler``; None when no
+    session recorded a kernel."""
+    def calls():
         for _ in range(iters):
             fn()
-        sync()
-    total_us = sum(e.self_device_time_total for e in prof.key_averages())
-    if total_us <= 0:
-        fail("torch.profiler recorded no device time")
-    return total_us / iters / 1e3
+
+    prof = card_profile(calls, what)
+    if prof is None:
+        return None
+    return sum(e.self_device_time_total for e in prof.key_averages()) / iters / 1e3
 
 
 # -- phase 2: every kernel against its plain version ----------------------------
@@ -370,8 +430,8 @@ def time_kernels(gen: torch.Generator, errs: dict, fused_n: int,
             "plain_ms": time_ms(plain, plain_iters, warmup=1),
             "library_ms": (time_ms(library, iters) if library is not None
                            else None),
-            "device_ms": device_ms(kernel, iters),
-            "plain_device_ms": device_ms(plain, plain_iters),
+            "device_ms": device_ms(kernel, iters, name),
+            "plain_device_ms": device_ms(plain, plain_iters, f"{name} plain"),
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "bytes": n_bytes,
@@ -1279,22 +1339,20 @@ def time_query(sess, query, iters: int) -> float:
     return (time.perf_counter() - t) / iters
 
 
-def kernel_overlap(fn) -> dict:
+def kernel_overlap(fn, what: str) -> "dict | None":
     """One call of ``fn`` under ``torch.profiler``: the card's kernel time
     summed over kernels, the time in which any kernel ran (the union of
     their intervals), the share of kernel time that overlapped another
-    kernel, and the streams the kernels ran on."""
+    kernel, and the streams the kernels ran on; None when no session
+    recorded a kernel."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     fn()
     sync()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        sync()
+    prof = card_profile(fn, what)
+    if prof is None:
+        return None
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not kernels:
-        fail("torch.profiler recorded no kernel on the card")
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     busy = sum(end - start for start, end in spans)
     union, (lo, hi) = 0.0, spans[0]
@@ -1365,8 +1423,10 @@ def placed_phase(errs: dict, gpu: str, device: str = "cuda", config=None,
              " sense groups, not one per pair")
     if device == "cuda":
         out["fold_profile"] = {
-            "placed": kernel_overlap(lambda: placed.materialize(query)),
-            "unplaced": kernel_overlap(lambda: plain.materialize(plain_query))}
+            "placed": kernel_overlap(lambda: placed.materialize(query),
+                                     "placed fold"),
+            "unplaced": kernel_overlap(lambda: plain.materialize(plain_query),
+                                       "unplaced fold")}
     query_s = {"placed": [], "unplaced": []}
     for i in range(query_pairs):
         order = (("placed", placed, query), ("unplaced", plain, plain_query))
@@ -1407,22 +1467,93 @@ def placed_phase(errs: dict, gpu: str, device: str = "cuda", config=None,
 
 # -- phase 9: the LM serving path at full width --------------------------------------
 
+def lm_times(prefill_fn, decode_fn, on_card: bool, what: str) -> dict:
+    """CUDA-event time per call of a prefill and of a decode step, and the
+    card's kernel time in each (``torch.profiler``): their ratio is the
+    card's busy share of the call (None off the card, or where the
+    profiler recorded no kernel)."""
+    if not on_card:
+        return dict.fromkeys(("prefill_ms", "prefill_device_ms", "decode_ms",
+                              "decode_device_ms", "decode_busy_share"))
+    prefill_ms, prefill_dev_ms = time_ms(prefill_fn, 5), device_ms(
+        prefill_fn, 5, f"{what} prefill")
+    decode_ms, decode_dev_ms = time_ms(decode_fn, 20), device_ms(
+        decode_fn, 20, f"{what} decode")
+    return {"prefill_ms": prefill_ms, "prefill_device_ms": prefill_dev_ms,
+            "decode_ms": decode_ms, "decode_device_ms": decode_dev_ms,
+            "decode_busy_share": (None if decode_dev_ms is None
+                                  else decode_dev_ms / decode_ms)}
+
+
+def lm_delta(params: dict, device: str, errs: dict, layer) -> dict:
+    """The XOR delta of the whole tree ``params`` against a copy with one
+    layer perturbed (``layer(tree)`` gives that layer's leaves and whether
+    they are stacked, repeat 0 being the layer), applied back: bit-exact,
+    ``bitwise_reduce`` launched once per leaf and direction, its recorded
+    call equal to the plain version."""
+    from repro_torch.checkpoint import delta as delta_mod
+    from repro_torch.checkpoint import delta_apply, delta_encode, delta_sparsity
+    from repro_torch.kernels import cuda
+    from repro_torch.models.specs import flatten, tree_map
+
+    on_card = device == "cuda"
+    newer = tree_map(torch.clone, params)
+    leaves, is_stacked = layer(newer)
+    noise = torch.Generator(device=device)
+    noise.manual_seed(LM_SEED + 2)
+    touched = 0
+    for path, leaf in flatten(leaves):
+        row = leaf[0] if is_stacked else leaf          # repeat 0: one layer
+        row.add_(torch.randn(row.shape, generator=noise, device=device)
+                 * 1e-3)
+        touched += row.numel()
+    before = cuda.launches["bitwise_reduce"]
+    t = time.perf_counter()
+    with recording(delta_mod.BACKENDS[torch.device(device).type]) as rec:
+        delta = delta_encode(params, newer)
+        back = delta_apply(params, delta)
+        if on_card:
+            sync()
+    delta_s = time.perf_counter() - t
+    n_leaves = len(flatten(params))
+    if on_card and cuda.launches["bitwise_reduce"] - before != 2 * n_leaves:
+        fail("lm: the delta did not launch bitwise_reduce once per leaf and "
+             "direction")
+    if rec.counts["bitwise_reduce"] != 2 * n_leaves:
+        fail(f"lm: {rec.counts['bitwise_reduce']} reduce calls for "
+             f"{n_leaves} leaves")
+    for (path, got), (_, want) in zip(flatten(back), flatten(newer)):
+        if got.device != want.device or not torch.equal(
+                got.reshape(-1).view(torch.int32),
+                want.reshape(-1).view(torch.int32)):
+            fail(f"lm: delta round trip of {path} is not bit-exact")
+    for path, words in flatten(delta):
+        if words.device.type != torch.device(device).type:
+            fail(f"lm: delta leaf {path} left the device")
+    checked = hold_recorded(rec.calls)
+    fold_errs(errs, checked, dict(cuda.launches), "lm")
+    return {"delta_s": delta_s, "delta_leaves": n_leaves,
+            "perturbed_params": touched,
+            "delta_zero_word_share": delta_sparsity(delta),
+            "kernel_checks": sorted(checked)}
+
+
 def lm_phase(errs: dict, gpu: str, device: str = "cuda", cfg=None,
              batch: int = LM_BATCH, prompt: int = LM_PROMPT,
-             new: int = LM_NEW, max_seq: int = LM_MAX_SEQ) -> dict:
+             new: int = LM_NEW, max_seq: int = LM_MAX_SEQ,
+             archs: "dict | None" = None) -> dict:
     """``Engine.from_seed`` at the arch's full width on the card: two greedy
     ``generate`` calls give equal tokens, the prompts come back unchanged,
     ``decode_calls`` counts ``new - 1`` per call, each decode step's logits
     equal a full prefill's over the same prefix within ``LM_TOL`` of the
     logits' scale; then the XOR delta of the whole parameter tree against a
     copy with one layer perturbed round-trips bit for bit through the
-    ``bitwise_reduce`` kernel."""
-    from repro_torch.checkpoint import delta as delta_mod
-    from repro_torch.checkpoint import delta_apply, delta_encode, delta_sparsity
+    ``bitwise_reduce`` kernel; then the ring-wrap run and the runs of
+    ``archs`` (``LM_ARCHS``).  The kernel counts span all of them."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import cuda
     from repro_torch.models import lm
-    from repro_torch.models.specs import count_params, flatten, tree_map
+    from repro_torch.models.specs import count_params
     from repro_torch.serve import Engine, ServeConfig
 
     on_card = device == "cuda"
@@ -1484,74 +1615,24 @@ def lm_phase(errs: dict, gpu: str, device: str = "cuda", cfg=None,
              f" of the logits' scale (tolerance {LM_TOL})")
     tokens = {"tokens": out[:, :prompt]}
     step_tok = out[:, prompt:prompt + 1]
-
-    def prefill_fn():
-        return lm.prefill(compute, cfg, tokens,
-                          lm.init_cache(cfg, batch, max_seq, device))
-
-    def decode_fn():
-        return lm.decode_step(compute, cfg, step_tok, caches, prompt)
-
-    # CUDA-event time per call, and the card's kernel time in it
-    # (torch.profiler): their ratio is the card's busy share of the step
-    prefill_ms = decode_ms = prefill_dev_ms = decode_dev_ms = None
-    if on_card:
-        prefill_ms, prefill_dev_ms = time_ms(prefill_fn, 5), device_ms(
-            prefill_fn, 5)
-        decode_ms, decode_dev_ms = time_ms(decode_fn, 20), device_ms(
-            decode_fn, 20)
-
-    # the XOR delta of the whole tree against one perturbed layer
-    newer = tree_map(torch.clone, eng.params)
-    layer = newer["pattern"]["b0"]
-    noise = torch.Generator(device=device)
-    noise.manual_seed(LM_SEED + 2)
-    touched = 0
-    for path, leaf in flatten(layer):
-        row = leaf[0]                                   # repeat 0: one layer
-        row.add_(torch.randn(row.shape, generator=noise, device=device)
-                 * 1e-3)
-        touched += row.numel()
-    before = cuda.launches["bitwise_reduce"]
-    t = time.perf_counter()
-    with recording(delta_mod.BACKENDS[torch.device(device).type]) as rec:
-        delta = delta_encode(eng.params, newer)
-        back = delta_apply(eng.params, delta)
-        if on_card:
-            sync()
-    delta_s = time.perf_counter() - t
-    n_leaves = len(flatten(eng.params))
-    if on_card and cuda.launches["bitwise_reduce"] - before != 2 * n_leaves:
-        fail("lm: the delta did not launch bitwise_reduce once per leaf and "
-             "direction")
-    if rec.counts["bitwise_reduce"] != 2 * n_leaves:
-        fail(f"lm: {rec.counts['bitwise_reduce']} reduce calls for "
-             f"{n_leaves} leaves")
-    for (path, got), (_, want) in zip(flatten(back), flatten(newer)):
-        if got.device != want.device or not torch.equal(
-                got.reshape(-1).view(torch.int32),
-                want.reshape(-1).view(torch.int32)):
-            fail(f"lm: delta round trip of {path} is not bit-exact")
-    for path, words in flatten(delta):
-        if words.device.type != torch.device(device).type:
-            fail(f"lm: delta leaf {path} left the device")
-    checked = hold_recorded(rec.calls)
+    times = lm_times(
+        lambda: lm.prefill(compute, cfg, tokens,
+                           lm.init_cache(cfg, batch, max_seq, device)),
+        lambda: lm.decode_step(compute, cfg, step_tok, caches, prompt),
+        on_card, cfg.name)
+    delta = lm_delta(eng.params, device, errs,
+                     lambda tree: (tree["pattern"]["b0"], True))
     launches = dict(cuda.launches)
-    fold_errs(errs, checked, launches, "lm")
-    sparsity = delta_sparsity(delta)
-    del rec, delta, back, newer
     n_params = count_params(lm.build_specs(cfg))
     res = {"arch": cfg.name, "params": n_params, "layers": cfg.n_layers,
            "batch": batch, "prompt": prompt, "new_tokens": new,
            "max_seq": max_seq, "init_s": init_s, "generate_s": gen_s,
            "tokens_per_s": batch * new / gen_s[1],
-           "prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms,
-           "prefill_device_ms": prefill_dev_ms,
-           "decode_device_ms_per_step": decode_dev_ms,
-           "decode_vs_prefill": worst, "delta_s": delta_s,
-           "delta_leaves": n_leaves, "perturbed_params": touched,
-           "delta_zero_word_share": sparsity, "launches": launches,
-           "kernel_checks": sorted(checked),
+           "prefill_ms": times["prefill_ms"],
+           "decode_ms_per_step": times["decode_ms"],
+           "prefill_device_ms": times["prefill_device_ms"],
+           "decode_device_ms_per_step": times["decode_device_ms"],
+           "decode_vs_prefill": worst, **delta, "launches": launches,
            "peak_allocated_gib": (torch.cuda.max_memory_allocated() / 2 ** 30
                                   if on_card else None),
            "seconds": time.perf_counter() - t0}
@@ -1561,15 +1642,306 @@ def lm_phase(errs: dict, gpu: str, device: str = "cuda", cfg=None,
           f"{prompt} tokens + {new} new, max_seq {max_seq}: tokens equal over "
           f"two calls, decode_calls {eng.decode_calls}, decode within "
           f"{worst:.3g} of a full prefill (tolerance {LM_TOL}); prefill "
-          f"{prefill_ms} ms (card busy {prefill_dev_ms} ms), decode "
-          f"{decode_ms} ms per step of {batch} tokens (card busy "
-          f"{decode_dev_ms} ms), generate {gen_s[1]:.3f} s ({res['tokens_per_s']:.1f} "
+          f"{res['prefill_ms']} ms (card busy {res['prefill_device_ms']} ms), "
+          f"decode {res['decode_ms_per_step']} ms per step of {batch} tokens "
+          f"(card busy {res['decode_device_ms_per_step']} ms), generate "
+          f"{gen_s[1]:.3f} s ({res['tokens_per_s']:.1f} "
           f"tokens/s); peak allocated {res['peak_allocated_gib']} GiB; XOR "
-          f"delta of {n_leaves} leaves bit-exact in {delta_s:.2f} s, zero "
-          f"words {sparsity:.6f}; phase {res['seconds']:.2f} s; launches "
-          + json.dumps(launches), flush=True)
+          f"delta of {res['delta_leaves']} leaves bit-exact in "
+          f"{res['delta_s']:.2f} s, zero words "
+          f"{res['delta_zero_word_share']:.6f}; phase {res['seconds']:.2f} s;"
+          f" launches " + json.dumps(launches), flush=True)
     res["ring_wrap"] = lm_ring_wrap(eng, gpu, batch)
-    del eng
+    del eng, compute, caches
+    runs = {}
+    for name, spec in (LM_ARCHS if archs is None else archs).items():
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+        runs[name] = lm_arch_run(errs, gpu, device, name, **spec)
+    res["archs"] = runs
+    res["launches"] = dict(cuda.launches)
+    return res
+
+
+def lm_inputs(cfg, device: str, batch: int, length: int) -> torch.Tensor:
+    """A request batch from seed ``LM_SEED + 1``: ``length`` prompt tokens,
+    patch embeddings (at the embedding table's scale, 0.02) or encoder
+    frames (N(0, 1)) per sequence."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(LM_SEED + 1)
+    if cfg.encdec:
+        return torch.randn(batch, length, cfg.d_model, generator=gen,
+                           device=device)
+    if not cfg.uses_tokens:
+        return torch.randn(batch, length, cfg.d_model, generator=gen,
+                           device=device) * 0.02
+    return torch.randint(1, cfg.vocab, (batch, length), generator=gen,
+                         device=device)
+
+
+def lm_steps(params: dict, cfg, inputs: torch.Tensor, new: int, max_seq: int,
+             *, feed: "torch.Tensor | None" = None,
+             dtype: torch.dtype = torch.bfloat16):
+    """``new`` steps through the public entry points in ``dtype``: a
+    ``prefill`` of the prompt tokens or patch embeddings ``inputs``, then
+    ``decode_step``s; for the encoder-decoder, ``encdec_prefill`` of the
+    frames ``inputs``, then decode steps from token 1 at position 0.  Each
+    step's token is its logits' argmax, or ``feed[:, i]`` when ``feed``
+    (B, new) is given.  Returns the tokens (B, new) and each step's logits
+    (B, V)."""
+    from repro_torch.models import lm
+
+    b, s0 = inputs.shape[:2]
+    if cfg.encdec:
+        caches = lm.encdec_prefill(params, cfg, {"frames": inputs},
+                                   lm.init_cache(cfg, b, s0, inputs.device,
+                                                 dtype), dtype=dtype)
+        tok = torch.ones((b, 1), dtype=torch.long, device=inputs.device)
+        logits, _ = lm.decode_step(params, cfg, tok, caches, 0, dtype=dtype)
+        pos0 = 1
+    else:
+        key = "tokens" if cfg.uses_tokens else "embeds"
+        logits, caches = lm.prefill(params, cfg, {key: inputs},
+                                    lm.init_cache(cfg, b, max_seq,
+                                                  inputs.device, dtype),
+                                    dtype=dtype)
+        pos0 = s0
+    steps, toks = [logits[:, -1]], []
+    while True:
+        toks.append(steps[-1].argmax(-1, keepdim=True) if feed is None
+                    else feed[:, len(toks):len(toks) + 1])
+        if len(toks) == new:
+            return torch.cat(toks, dim=1), steps
+        logits, caches = lm.decode_step(params, cfg, toks[-1], caches,
+                                        pos0 + len(steps) - 1, dtype=dtype)
+        steps.append(logits[:, -1])
+
+
+def lm_full(params: dict, cfg, inputs: torch.Tensor, out: torch.Tensor,
+            max_seq: int, dtype: torch.dtype) -> list:
+    """What each of ``lm_steps``'s steps should give, teacher-forced on
+    ``out`` (B, new), from passes over the whole prefix in ``dtype``: a
+    ``prefill`` of the prompt and the tokens before the step (patch
+    embeddings followed by the tokens' embedding rows); for the
+    encoder-decoder, one pass of the decoder over token 1 and ``out``
+    (``_encdec_forward``, non-causal encoder and causal decoder)."""
+    from repro_torch.models import lm
+
+    compute = lm.cast_params(params, dtype)
+    if cfg.encdec:
+        seq = torch.cat([torch.ones_like(out[:, :1]), out[:, :-1]], dim=1)
+        enc = lm._encdec_encode(compute, cfg, inputs)
+        return list(lm._encdec_forward(compute, cfg, enc, seq).unbind(1))
+    steps = []
+    for i in range(out.shape[1]):
+        if cfg.uses_tokens:
+            batch = {"tokens": torch.cat([inputs, out[:, :i]], dim=1)}
+        else:
+            batch = {"embeds": torch.cat([inputs.to(dtype), lm.embed_lookup(
+                compute["embed"], out[:, :i]).to(dtype)], dim=1)}
+        logits, _ = lm.prefill(compute, cfg, batch, lm.init_cache(
+            cfg, out.shape[0], max_seq, inputs.device, dtype), dtype=dtype)
+        steps.append(logits[:, -1])
+    return steps
+
+
+def share(got: list, want: list) -> float:
+    """The largest gap between two lists of logits, step by step, as a
+    share of ``want``'s largest magnitude at the step."""
+    return max(float((a.float() - b.float()).abs().max()
+                     / b.float().abs().max()) for a, b in zip(got, want))
+
+
+def lm_gap(params: dict, cfg, inputs: torch.Tensor, out: torch.Tensor,
+           max_seq: int, dtype: torch.dtype):
+    """``lm_steps``' steps teacher-forced on ``out`` against ``lm_full``'s:
+    their largest gap (``share``) and the full pass's logits."""
+    _, steps = lm_steps(params, cfg, inputs, out.shape[1], max_seq, feed=out,
+                        dtype=dtype)
+    if not all(bool(torch.isfinite(s.float()).all()) for s in steps):
+        fail(f"lm {cfg.name}: {dtype} decode logits are not finite")
+    full = lm_full(params, cfg, inputs, out, max_seq, dtype)
+    return share(steps, full), full
+
+
+def fan_in_attention(tree: dict) -> int:
+    """Scale every attention query and key projection of ``tree`` (leaves
+    ``wq``/``wk`` of shape (..., D, heads, head_dim)), in place, from the
+    reference initializer's std ``1/sqrt(heads)`` to ``1/sqrt(D)``, the
+    fan-in of the width (ROADMAP R9); returns the leaves scaled."""
+    from repro_torch.models.specs import flatten
+
+    n = 0
+    for path, leaf in flatten(tree):
+        if path.rsplit("/", 1)[-1] in ("wq", "wk"):
+            leaf.mul_((leaf.shape[-2] / leaf.shape[-3]) ** 0.5)
+            n += 1
+    return n
+
+
+def lm_drops(compute: dict, cfg, inputs: torch.Tensor, new: int,
+             max_seq: int) -> dict:
+    """The share of (token, expert) assignments past their expert's
+    capacity at ``cfg.capacity_factor``, in a greedy prefill and in its
+    decode steps (``moe.route``'s destinations, counted per call)."""
+    from repro_torch.models import moe
+
+    counts = {"prefill": [0, 0], "decode": [0, 0]}
+    real = moe.route
+
+    def route(p, xt, **kw):
+        routed = real(p, xt, **kw)
+        dest, cap = routed[2], routed[3]
+        part = counts["prefill" if xt.shape[0] > inputs.shape[0]
+                      else "decode"]
+        part[0] += int((dest >= p["router"].shape[-1] * cap).sum())
+        part[1] += dest.numel()
+        return routed
+
+    moe.route = route
+    try:
+        lm_steps(compute, cfg, inputs, new, max_seq)
+    finally:
+        moe.route = real
+    return {part: {"dropped": n, "assigned": total, "share": n / total}
+            for part, (n, total) in counts.items()}
+
+
+def lm_arch_run(errs: dict, gpu: str, device: str, arch: str, *, batch: int,
+                new: int, prompt: int = 0, max_seq: int = 0, frames: int = 0,
+                patches: int = 0, repeats: int = 0,
+                capacity_factor: float = 0.0, drops_at: float = 0.0,
+                delta: bool = False, bf16_gated: bool = True) -> dict:
+    """One config of ``LM_ARCHS`` at its published widths (depth cut to
+    ``repeats`` where given), from a fresh ``Engine.from_seed`` on the
+    card: greedy serving twice with equal tokens (``Engine.generate``, or
+    ``lm_steps`` for patch embeddings and frames), prefill and decode
+    times with the card's busy share of a decode step, tokens/s, peak
+    allocated memory; the MoE drop shares at ``drops_at``; the XOR delta
+    of the whole tree where ``delta``.  Then the decode gates, with the
+    query and key projections at the width's fan-in (``fan_in_attention``):
+    every float32 decode step within ``LM_F32_TOL`` of a float32 full pass
+    over the same prefix, and every bfloat16 one (the served dtype) within
+    ``LM_TOL`` of a bfloat16 full pass, or reported only where not
+    ``bf16_gated``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.models.specs import count_params
+    from repro_torch.serve import Engine, ServeConfig
+
+    on_card = device == "cuda"
+    cfg = get_config(arch)
+    published_layers = cfg.n_layers
+    if repeats:
+        cfg = dataclasses.replace(cfg, repeats=repeats)
+    if capacity_factor:
+        cfg = dataclasses.replace(cfg, capacity_factor=capacity_factor)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = Engine.from_seed(cfg, seed=LM_SEED, device=device,
+                           serve_cfg=ServeConfig(max_seq=max_seq))
+    compute = eng._compute
+    inputs = lm_inputs(cfg, device, batch, prompt or patches or frames)
+    kept = inputs.clone()
+    if on_card:
+        sync()
+    init_s = time.perf_counter() - t0
+    tokens = cfg.uses_tokens and not cfg.encdec
+    outs, gen_s = [], []
+    for _ in range(2):
+        t = time.perf_counter()
+        outs.append(eng.generate(inputs, new)[:, prompt:] if tokens
+                    else lm_steps(compute, cfg, inputs, new, max_seq)[0])
+        if on_card:
+            sync()
+        gen_s.append(time.perf_counter() - t)
+    out = outs[1]
+    if not torch.equal(outs[0], out) or out.shape != (batch, new):
+        fail(f"lm {arch}: two greedy runs gave different tokens")
+    if not torch.equal(inputs, kept):
+        fail(f"lm {arch}: the prompts did not come back unchanged")
+    if eng.decode_calls != (2 * (new - 1) if tokens else 0):
+        fail(f"lm {arch}: decode_calls {eng.decode_calls}")
+
+    # timing: a prefill (encoder-decoder: encode and stage the cross K/V)
+    # and one decode step on its caches
+    if cfg.encdec:
+        def prefill_fn():
+            return lm.encdec_prefill(compute, cfg, {"frames": inputs},
+                                     lm.init_cache(cfg, batch, frames, device))
+        caches, pos = prefill_fn(), 0
+    else:
+        key = "tokens" if cfg.uses_tokens else "embeds"
+
+        def prefill_fn():
+            return lm.prefill(compute, cfg, {key: inputs},
+                              lm.init_cache(cfg, batch, max_seq, device))
+        caches, pos = prefill_fn()[1], inputs.shape[1]
+    times = lm_times(
+        prefill_fn, lambda: lm.decode_step(compute, cfg, out[:, :1], caches,
+                                           pos), on_card, arch)
+    del caches
+    res = {"arch": arch, "params": count_params(lm.build_specs(cfg)),
+           "layers": cfg.n_layers, "published_layers": published_layers,
+           "d_model": cfg.d_model, "batch": batch, "prompt": prompt,
+           "frames": frames, "patches": patches, "new_tokens": new,
+           "max_seq": max_seq, "capacity_factor": cfg.capacity_factor,
+           "init_s": init_s, "serve_s": gen_s,
+           "tokens_per_s": batch * new / gen_s[1], **times}
+    if drops_at:
+        res["drops"] = lm_drops(compute, dataclasses.replace(
+            cfg, capacity_factor=drops_at), inputs, new, max_seq)
+        res["drops"]["capacity_factor"] = drops_at
+    res["peak_allocated_gib"] = (torch.cuda.max_memory_allocated() / 2 ** 30
+                                 if on_card else None)
+    if delta:
+        res.update(lm_delta(eng.params, device, errs, lambda tree: (
+            (tree["pattern"]["b0"], True) if "pattern" in tree
+            else (tree["decoder"]["d0"], False))))
+
+    # the gates, on the query and key projections at the width's fan-in
+    res["fan_in_leaves"] = fan_in_attention(eng.params)
+    fan_in_attention(compute)
+    with torch.no_grad():
+        res["f32_decode_vs_full"], full32 = lm_gap(
+            eng.params, cfg, inputs, out, max_seq, torch.float32)
+        res["bf16_decode_vs_full"], full16 = lm_gap(
+            compute, cfg, inputs, out, max_seq, torch.bfloat16)
+    res["bf16_full_vs_f32"] = share(full16, full32)
+    if not res["f32_decode_vs_full"] <= LM_F32_TOL:
+        fail(f"lm {arch}: float32 decode steps differ from a float32 full "
+             f"pass by {res['f32_decode_vs_full']:.3g} of the logits' scale "
+             f"(tolerance {LM_F32_TOL})")
+    if bf16_gated and not res["bf16_decode_vs_full"] <= LM_TOL:
+        fail(f"lm {arch}: bfloat16 decode steps differ from a bfloat16 full "
+             f"pass by {res['bf16_decode_vs_full']:.3g} of the logits' scale "
+             f"(tolerance {LM_TOL})")
+    del eng, compute, outs, out, inputs, kept, full32, full16
+    res["seconds"] = time.perf_counter() - t0
+    cut = ("" if cfg.n_layers == published_layers else
+           f" (depth cut: {cfg.n_layers} of its {published_layers} layers)")
+    unit = "tokens" if prompt else "patch embeddings" if patches else "frames"
+    print(f"lm {arch} ({gpu}): {res['params']} parameters, {cfg.n_layers} "
+          f"layers{cut}, d_model {cfg.d_model}, from seed {LM_SEED}; "
+          f"{batch} x {prompt or patches or frames} {unit} + {new} new: "
+          f"tokens equal over two runs; prefill {res['prefill_ms']} ms (card "
+          f"busy {res['prefill_device_ms']} ms), decode {res['decode_ms']} ms "
+          f"per step (card busy {res['decode_device_ms']} ms, share "
+          f"{res['decode_busy_share']}), {res['tokens_per_s']:.1f} tokens/s, "
+          f"peak allocated {res['peak_allocated_gib']} GiB"
+          + (f"; dropped at capacity factor {drops_at}: "
+             + json.dumps(res["drops"]) if drops_at else "")
+          + (f"; XOR delta of {res['delta_leaves']} leaves bit-exact in "
+             f"{res['delta_s']:.2f} s" if delta else "")
+          + f"; with {res['fan_in_leaves']} wq/wk leaves at the width's "
+          f"fan-in, decode against a full pass: float32 "
+          f"{res['f32_decode_vs_full']:.3g} (tolerance {LM_F32_TOL}), "
+          f"bfloat16 {res['bf16_decode_vs_full']:.3g} ("
+          + (f"tolerance {LM_TOL}" if bf16_gated else "reported") + f"; the "
+          f"bfloat16 full pass {res['bf16_full_vs_f32']:.3g} from the "
+          f"float32 one); {res['seconds']:.2f} s", flush=True)
     return res
 
 
@@ -1684,27 +2056,30 @@ def main() -> int:
           flush=True)
     torch.cuda.empty_cache()
 
-    from torch.profiler import ProfilerActivity, profile
-
     cuda.reset_launches()
     run = main_path()
     launches = dict(cuda.launches)
     # a second, profiled pass (same seed, fresh device) for the breakdown
     gc.collect()
     torch.cuda.empty_cache()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        profiled = main_path()
-    busy = sorted(((e.self_device_time_total, e.count, e.key)
-                   for e in prof.key_averages()), reverse=True)
-    busy_s = sum(us for us, _, _ in busy) / 1e6
-    wall_s = profiled["phases"]["main_path_s"]
-    run["device"] = {
-        "busy_s": busy_s, "wall_s": wall_s, "idle_share": 1 - busy_s / wall_s,
-        "top": [{"kernel": key[:80], "ms": us / 1e3, "count": n}
-                for us, n, key in busy[:8]]}
-    print(f"main path, profiled pass: device busy {busy_s:.3f} s of "
-          f"{wall_s:.3f} s wall (torch.profiler); top kernels "
-          + json.dumps(run["device"]["top"][:4]), flush=True)
+    profiled: dict = {}
+    prof = card_profile(lambda: profiled.update(main_path()), "main path")
+    if prof is None:
+        run["device"] = None
+        print("main path, profiled pass: device busy not measured", flush=True)
+    else:
+        busy = sorted(((e.self_device_time_total, e.count, e.key)
+                       for e in prof.key_averages()), reverse=True)
+        busy_s = sum(us for us, _, _ in busy) / 1e6
+        wall_s = profiled["phases"]["main_path_s"]
+        run["device"] = {
+            "busy_s": busy_s, "wall_s": wall_s,
+            "idle_share": 1 - busy_s / wall_s,
+            "top": [{"kernel": key[:80], "ms": us / 1e3, "count": n}
+                    for us, n, key in busy[:8]]}
+        print(f"main path, profiled pass: device busy {busy_s:.3f} s of "
+              f"{wall_s:.3f} s wall (torch.profiler); top kernels "
+              + json.dumps(run["device"]["top"][:4]), flush=True)
     print(f"main path ({gpu}): " + json.dumps(
         {k: round(v, 3) for k, v in run["phases"].items()}), flush=True)
     print("stats: " + json.dumps(run["stats"]), flush=True)

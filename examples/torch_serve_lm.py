@@ -5,10 +5,14 @@
 
 The counterpart of ``examples/serve_lm.py``.  Without ``--full-width`` the
 arch is cut to the same ``tiny()`` family config (d_model 256, 4 pattern
-repeats, window 64); with it, the published widths and depth run (on a
-card: gemma3-1b is about 1e9 parameters).  Weights are random, from a
-seed.  The port runs the attention stacks (``attn`` / ``swa`` blocks with
-a dense MLP); other arches raise ``NotImplementedError``.
+repeats, window 64; RG-LRU width 256, 4 experts, the published SSD
+sizes); with it, the published widths and depth run on a card
+(gemma3-1b is about 1e9 parameters, mamba2-130m 1.3e8, recurrentgemma-9b
+8.6e9; the float32 weights of mixtral-8x7b, dbrx-132b, qwen3-32b and
+internvl2-26b do not fit one 80 GB card).  Weights are random, from a
+seed.  Every arch whose prompts are token ids serves; internvl2-26b
+(patch embeddings) and whisper-tiny (audio frames) take other prompts
+and the engine rejects them.
 """
 import argparse
 import dataclasses

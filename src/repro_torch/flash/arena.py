@@ -297,11 +297,13 @@ class ShardedVthArena:
         waits for ``ready`` (the event after the side-stream work that made
         ``x``), and ``x`` is marked as used there."""
         if ready is not None:
-            for dev in {x.device, self.device}:
-                cur = torch.cuda.current_stream(dev)
-                cur.wait_event(ready)
-                if dev == x.device:
-                    x.record_stream(cur)
+            here = torch.cuda.current_stream(x.device)
+            here.wait_event(ready)
+            x.record_stream(here)
+            # "cuda" and "cuda:0" name one stream: it waits once
+            there = torch.cuda.current_stream(self.device)
+            if there != here:
+                there.wait_event(ready)
         return x.to(self.device) if self.devices else x
 
     def colocate(self, x: torch.Tensor, slot: Optional[int]) -> torch.Tensor:

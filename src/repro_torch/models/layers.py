@@ -1,8 +1,8 @@
 """Shared model layers: norms, rotary embeddings, the dense MLP, embedding.
 
 Plain functions over tensors, as in the JAX package (``models/layers.py``).
-Training's pieces (``grad_bf16``, ``chunked_softmax_xent``) and the SSM's
-``causal_conv1d`` wait for the port of training and of the ``ssd`` block.
+Training's pieces (``grad_bf16``, ``chunked_softmax_xent``) wait for the
+port of training.
 """
 from __future__ import annotations
 
@@ -12,7 +12,7 @@ import torch.nn.functional as F
 from repro_torch.models.specs import ParamSpec
 
 __all__ = ["rms_norm", "rotary", "mlp_specs", "mlp_apply", "embed_specs",
-           "embed_lookup"]
+           "embed_lookup", "causal_conv1d"]
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -61,3 +61,25 @@ def embed_specs(vocab: int, d_model: int) -> ParamSpec:
 
 def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     return table[tokens.long()]
+
+
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor,
+                  b: "torch.Tensor | None" = None,
+                  state: "torch.Tensor | None" = None):
+    """Depthwise causal conv.  x: (B, S, C), w: (W, C).  Returns (y,
+    new_state), where the state carries the trailing W-1 inputs for
+    streaming decode (in x's dtype)."""
+    width = w.shape[0]
+    if state is None:
+        pad = x.new_zeros((x.shape[0], width - 1, x.shape[2]))
+    else:
+        pad = state.to(x.dtype)
+    xp = torch.cat([pad, x], dim=1)                          # (B, S+W-1, C)
+    s = x.shape[1]
+    y = 0
+    for i in range(width):
+        y = y + xp[:, i:i + s] * w[i]
+    if b is not None:
+        y = y + b
+    new_state = xp[:, -(width - 1):] if width > 1 else pad
+    return y, new_state

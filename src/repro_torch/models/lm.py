@@ -1,26 +1,44 @@
-"""Config-driven decoder-only LM: the attention stacks, prefill and decode.
+"""Config-driven LMs: decoder-only stacks and the whisper-style
+encoder-decoder, for serving (prefill and decode).
 
-The JAX package's ``models/lm.py`` for blocks of kind ``attn`` and ``swa``
-with a dense MLP.  The layer stack is ``pattern x repeats (+ tail)``:
+The JAX package's ``models/lm.py``.  Blocks of kind ``attn``, ``swa``
+(sliding window), ``rglru`` and ``ssd``, each with a ``dense``, ``moe``
+or no (``none``) MLP.  The layer stack is ``pattern x repeats (+ tail)``:
 pattern-block parameters are stacked along a leading "layers" axis (the
 JAX package scans over it; here a Python loop indexes it), and caches
-mirror the same structure.  Parameters are nested dicts of tensors keyed
-as the JAX package's pytrees (:func:`repro_torch.models.specs.params_from_jax`).
+mirror the same structure: K/V rings for attention, float32 states
+(``h``/``conv``, ``ssm``/``conv``) for the recurrent blocks.  Parameters
+are nested dicts of tensors keyed as the JAX package's pytrees
+(:func:`repro_torch.models.specs.params_from_jax`).
 
-Unlike the JAX functions, :func:`prefill` and :func:`decode_step` write
-the caches in place (one cache per request batch saves a copy of it per
-step) and return the same dicts.  Sharding constraints (``constrain``) are
-identities at world size 1 and are left out until ``parallel/`` is ported.
+Unlike the JAX functions, :func:`prefill`, :func:`decode_step` and
+:func:`encdec_prefill` write the caches in place (one cache per request
+batch saves a copy of it per step) and return the same dicts; a
+recurrent block ``copy_``s its new state into its cache.  Sharding
+constraints (``constrain``) are identities at world size 1 and are left
+out until ``parallel/`` is ported.
 
-Not ported yet (ROADMAP queue 1 item 7): ``moe``, ``rglru`` and ``ssd``
-blocks, MLPs other than dense, the encoder-decoder, modality frontends
-and ``forward_loss`` (training); each raises ``NotImplementedError``.
+Two behaviours of the JAX package's serving path are kept for parity
+(ROADMAP R7, R8): the ``hybrid`` family's ``sqrt(d_model)`` embedding
+scale, which the JAX package applies only in ``forward_loss``, is not
+applied here; whisper's ``enc_pos`` parameter is carried but unread.
+
+A sliding-window ring holds token position ``p`` in slot ``p % window``,
+after a prefill as after a decode step (the JAX package's prefill puts a
+long prompt's tail in slots ``0..window-1``, ROADMAP R6).
+
+Not ported yet: ``forward_loss`` (training, ROADMAP queue 1 item 7.3).
 
 Entry points:
   build_specs(cfg)                          -> ParamSpec tree
   prefill(params, cfg, batch, caches)       -> (last-token logits, caches)
   decode_step(params, cfg, tokens, caches, cur_index) -> (logits, caches)
+  encdec_prefill(params, cfg, batch, caches) -> caches (encoder-decoder)
   cache_layout(cfg, batch, seq) / init_cache(cfg, batch, seq, device)
+
+The serving entry points compute in bfloat16, as the JAX package's do;
+their ``dtype=torch.float32`` (with caches from ``init_cache(...,
+dtype=torch.float32)``) runs the same code on the float32 master weights.
 """
 from __future__ import annotations
 
@@ -30,31 +48,15 @@ import torch
 
 from repro_torch.configs.base import BlockCfg, ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_lib
+from repro_torch.models import rglru as rglru_lib
+from repro_torch.models import ssd as ssd_lib
 from repro_torch.models.layers import (embed_lookup, embed_specs, mlp_apply,
                                        mlp_specs, rms_norm, rotary)
 from repro_torch.models.specs import ParamSpec, stacked, tree_map
 
-__all__ = ["build_specs", "cast_params", "prefill", "decode_step",
-           "cache_layout", "init_cache"]
-
-_NOT_PORTED = "is not ported yet (ROADMAP queue 1 item 7)"
-
-
-def _check_ported(cfg: ModelConfig) -> None:
-    """Raise for what the port does not run yet."""
-    if cfg.encdec:
-        raise NotImplementedError(f"the encoder-decoder ({cfg.name}) "
-                                  + _NOT_PORTED)
-    if not cfg.uses_tokens:
-        raise NotImplementedError(f"the {cfg.frontend} frontend ({cfg.name}) "
-                                  + _NOT_PORTED)
-    for blk in cfg.pattern + cfg.tail:
-        if blk.kind not in ("attn", "swa"):
-            raise NotImplementedError(f"{blk.kind!r} blocks ({cfg.name}) "
-                                      + _NOT_PORTED)
-        if blk.mlp != "dense":
-            raise NotImplementedError(f"the {blk.mlp!r} MLP ({cfg.name}) "
-                                      + _NOT_PORTED)
+__all__ = ["build_specs", "cast_params", "forward_loss", "prefill",
+           "decode_step", "encdec_prefill", "cache_layout", "init_cache"]
 
 
 # --------------------------------------------------------------------------
@@ -75,26 +77,43 @@ def _attn_specs(cfg: ModelConfig) -> dict:
     return s
 
 
-def _block_specs(cfg: ModelConfig) -> dict:
-    return {"ln1": ParamSpec((cfg.d_model,), (None,), init="zeros"),
-            "attn": _attn_specs(cfg),
-            "ln2": ParamSpec((cfg.d_model,), (None,), init="zeros"),
-            "mlp": mlp_specs(cfg.d_model, cfg.d_ff)}
+def _block_specs(cfg: ModelConfig, blk: BlockCfg) -> dict:
+    s: dict[str, Any] = {"ln1": ParamSpec((cfg.d_model,), (None,),
+                                          init="zeros")}
+    if blk.kind in ("attn", "swa"):
+        s["attn"] = _attn_specs(cfg)
+    elif blk.kind == "rglru":
+        s["rglru"] = rglru_lib.rglru_specs(cfg)
+    elif blk.kind == "ssd":
+        s["ssd"] = ssd_lib.ssd_specs(cfg)
+    else:
+        raise ValueError(blk.kind)
+    if blk.mlp == "dense":
+        s["ln2"] = ParamSpec((cfg.d_model,), (None,), init="zeros")
+        s["mlp"] = mlp_specs(cfg.d_model, cfg.d_ff)
+    elif blk.mlp == "moe":
+        s["ln2"] = ParamSpec((cfg.d_model,), (None,), init="zeros")
+        s["moe"] = moe_lib.moe_specs(cfg.d_model, cfg.d_ff, cfg.n_experts)
+    elif blk.mlp != "none":
+        raise ValueError(blk.mlp)
+    return s
 
 
 def build_specs(cfg: ModelConfig) -> dict:
     """Full parameter-spec tree for an arch."""
-    _check_ported(cfg)
+    if cfg.encdec:
+        return _encdec_specs(cfg)
     specs: dict[str, Any] = {
         "embed": embed_specs(cfg.vocab, cfg.d_model),
         "final_norm": ParamSpec((cfg.d_model,), (None,), init="zeros"),
     }
     specs["pattern"] = {
         f"b{i}": tree_map(lambda sp: stacked(sp, cfg.repeats),
-                          _block_specs(cfg),
+                          _block_specs(cfg, blk),
                           is_leaf=lambda x: isinstance(x, ParamSpec))
-        for i in range(len(cfg.pattern))}
-    specs["tail"] = {f"t{i}": _block_specs(cfg) for i in range(len(cfg.tail))}
+        for i, blk in enumerate(cfg.pattern)}
+    specs["tail"] = {f"t{i}": _block_specs(cfg, blk)
+                     for i, blk in enumerate(cfg.tail)}
     if not cfg.tie_embeddings:
         specs["lm_head"] = ParamSpec((cfg.d_model, cfg.vocab),
                                      ("embed", "vocab"))
@@ -102,14 +121,15 @@ def build_specs(cfg: ModelConfig) -> dict:
 
 
 # --------------------------------------------------------------------------
-# Block application (prefill and decode)
+# Block application (full sequence, prefill and decode)
 # --------------------------------------------------------------------------
 
 def _attn_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, blk: BlockCfg, *,
-                positions: torch.Tensor, cache: dict,
-                cur_index: "int | None") -> torch.Tensor:
-    """Attention with its cache write: a prefill (S > 1) fills the cache,
-    a decode step (S == 1) writes one slot and attends the cache."""
+                positions: torch.Tensor, cache: "dict | None",
+                cur_index: "int | None", causal: bool = True) -> torch.Tensor:
+    """Attention, with its cache write when there is a cache: a prefill
+    (S > 1) fills it, a decode step (S == 1) writes one slot and attends
+    the cache.  ``cache=None`` is a plain full-sequence pass."""
     s = x.shape[1]
     q = torch.einsum("bsd,dhk->bhsk", x, p["wq"])
     k = torch.einsum("bsd,dhk->bhsk", x, p["wk"])
@@ -119,12 +139,13 @@ def _attn_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, blk: BlockCfg, *,
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
     q = rotary(q, positions, cfg.rope_theta)
     k = rotary(k, positions, cfg.rope_theta)
-    if s > 1:
-        _cache_write_prefill(cache, k, v, blk)
-        if blk.kind == "swa":
+    if cache is None or s > 1:
+        if cache is not None:
+            _cache_write_prefill(cache, k, v, blk)
+        if blk.kind == "swa" and causal:
             o = attn.local_attention(q, k, v, window=blk.window)
         else:
-            o = attn.flash_attention(q, k, v, causal=True)
+            o = attn.flash_attention(q, k, v, causal=causal)
     else:
         entry_pos = _cache_write_decode(cache, k, v, blk, cur_index)
         o = attn.decode_attention(q, cache["k"], cache["v"],
@@ -135,11 +156,15 @@ def _attn_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, blk: BlockCfg, *,
 
 def _cache_write_prefill(cache: dict, k: torch.Tensor, v: torch.Tensor,
                          blk: BlockCfg) -> None:
-    """The prompt's K/V into the first slots (a sliding window keeps its
-    last ``window`` tokens, as the JAX package does)."""
+    """The prompt's K/V into the cache, position ``p`` in slot ``p``; a
+    sliding window keeps a longer prompt's last ``window`` tokens, position
+    ``p`` in slot ``p % window`` (the slot decode reads and overwrites)."""
     kc, vc = cache["k"], cache["v"]
-    if blk.kind == "swa" and blk.window < k.shape[2]:
-        k, v = k[:, :, -blk.window:], v[:, :, -blk.window:]
+    s = k.shape[2]
+    if blk.kind == "swa" and blk.window < s:
+        # tail position s - window + j belongs in slot (s + j) % window
+        k, v = (torch.roll(t[:, :, -blk.window:], shifts=s % blk.window,
+                           dims=2) for t in (k, v))
     n = k.shape[2]
     if n > kc.shape[2]:
         raise ValueError(f"prompt of {n} tokens exceeds the cache's "
@@ -166,13 +191,49 @@ def _cache_write_decode(cache: dict, k: torch.Tensor, v: torch.Tensor,
     return entry_pos
 
 
+def _state_apply(forward, decode, p: dict, h: torch.Tensor, cfg: ModelConfig,
+                 cache: "dict | None") -> torch.Tensor:
+    """A recurrent block: a full pass from a zero state, its final state
+    copied into ``cache`` when there is one (prefill), or one decode step
+    from the cached state, copied back."""
+    if cache is None:
+        return forward(p, h, cfg)[0]
+    if h.shape[1] > 1:
+        o, new = forward(p, h, cfg)
+    else:
+        o, new = decode(p, h, cfg, cache)
+    for name, t in new.items():
+        cache[name].copy_(t)
+    return o
+
+
 def _apply_block(p: dict, x: torch.Tensor, cfg: ModelConfig, blk: BlockCfg,
-                 *, positions, cache: dict, cur_index) -> torch.Tensor:
-    """Pre-norm residual block."""
+                 *, positions, cache: "dict | None", cur_index,
+                 causal: bool = True):
+    """Pre-norm residual block.  Returns (x, aux_loss)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    x = x + _attn_apply(p["attn"], h, cfg, blk, positions=positions,
-                        cache=cache, cur_index=cur_index)
-    return x + mlp_apply(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps))
+    if blk.kind in ("attn", "swa"):
+        o = _attn_apply(p["attn"], h, cfg, blk, positions=positions,
+                        cache=cache, cur_index=cur_index, causal=causal)
+    elif blk.kind == "rglru":
+        o = _state_apply(rglru_lib.rglru_forward, rglru_lib.rglru_decode,
+                         p["rglru"], h, cfg, cache)
+    elif blk.kind == "ssd":
+        o = _state_apply(ssd_lib.ssd_forward, ssd_lib.ssd_decode, p["ssd"],
+                         h, cfg, cache)
+    else:
+        raise ValueError(blk.kind)
+    x = x + o
+    if blk.mlp == "dense":
+        x = x + mlp_apply(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps))
+    elif blk.mlp == "moe":
+        mo, aux = moe_lib.moe_apply(p["moe"],
+                                    rms_norm(x, p["ln2"], cfg.norm_eps),
+                                    top_k=cfg.top_k,
+                                    capacity_factor=cfg.capacity_factor)
+        x = x + mo
+    return x, aux
 
 
 def _index(tree: dict, r: int) -> dict:
@@ -182,18 +243,21 @@ def _index(tree: dict, r: int) -> dict:
 
 
 def _run_stack(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
-               positions, caches: dict, cur_index=None) -> torch.Tensor:
-    """The pattern stack ``repeats`` times, then the tail."""
+               positions, caches: "dict | None",
+               cur_index=None) -> torch.Tensor:
+    """The pattern stack ``repeats`` times, then the tail (``caches=None``:
+    a plain full-sequence pass)."""
     for r in range(cfg.repeats):
         for i, blk in enumerate(cfg.pattern):
-            x = _apply_block(_index(params["pattern"][f"b{i}"], r), x, cfg,
-                             blk, positions=positions,
-                             cache=_index(caches["pattern"][f"b{i}"], r),
-                             cur_index=cur_index)
+            c = (None if caches is None
+                 else _index(caches["pattern"][f"b{i}"], r))
+            x, _ = _apply_block(_index(params["pattern"][f"b{i}"], r), x, cfg,
+                                blk, positions=positions, cache=c,
+                                cur_index=cur_index)
     for i, blk in enumerate(cfg.tail):
-        x = _apply_block(params["tail"][f"t{i}"], x, cfg, blk,
-                         positions=positions, cache=caches["tail"][f"t{i}"],
-                         cur_index=cur_index)
+        c = None if caches is None else caches["tail"][f"t{i}"]
+        x, _ = _apply_block(params["tail"][f"t{i}"], x, cfg, blk,
+                            positions=positions, cache=c, cur_index=cur_index)
     return x
 
 
@@ -208,30 +272,50 @@ def cast_params(params: dict, dtype: torch.dtype = torch.bfloat16) -> dict:
                     params)
 
 
+def forward_loss(params: dict, cfg: ModelConfig, batch: dict, **kw):
+    """Training loss: not ported yet."""
+    raise NotImplementedError(
+        f"training ({cfg.name}) is not ported yet (ROADMAP queue 1 item 7.3)")
+
+
 def _logits(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     table = params["embed"] if cfg.tie_embeddings else params["lm_head"].T
     return x @ table.T
 
 
-def prefill(params: dict, cfg: ModelConfig, batch: dict, caches: dict):
-    """Run the prompt ``batch["tokens"]`` (B, S), fill ``caches`` and
-    return the last token's logits (B, 1, V)."""
-    _check_ported(cfg)
-    params = cast_params(params)
-    x = embed_lookup(params["embed"], batch["tokens"]).to(torch.bfloat16)
+def prefill(params: dict, cfg: ModelConfig, batch: dict, caches: dict, *,
+            dtype: torch.dtype = torch.bfloat16):
+    """Run the prompt, ``batch["tokens"]`` (B, S) or, for an arch with a
+    modality frontend, ``batch["embeds"]`` (B, S, D); fill ``caches`` and
+    return the last position's logits (B, 1, V)."""
+    if cfg.encdec:
+        raise ValueError("use encdec_prefill for encoder-decoder archs")
+    params = cast_params(params, dtype)
+    if cfg.uses_tokens:
+        x = embed_lookup(params["embed"], batch["tokens"])
+    else:
+        x = batch["embeds"]
+    x = x.to(dtype)
     positions = torch.arange(x.shape[1], device=x.device)
     x = _run_stack(params, x, cfg, positions=positions, caches=caches)
     return _logits(params, cfg, x[:, -1:]), caches
 
 
 def decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
-                caches: dict, cur_index: int):
-    """One serving step: tokens (B, 1) at position ``cur_index`` -> logits
-    (B, 1, V), the caches updated in place."""
-    _check_ported(cfg)
-    params = cast_params(params)
-    x = embed_lookup(params["embed"], tokens).to(torch.bfloat16)
+                caches: dict, cur_index: int, *,
+                dtype: torch.dtype = torch.bfloat16):
+    """One serving step at position ``cur_index``: token ids (B, 1), or
+    embeds (B, 1, D) -> logits (B, 1, V), the caches updated in place.
+    Archs with a modality frontend decode text tokens as ids."""
+    params = cast_params(params, dtype)
+    if cfg.encdec:
+        return _encdec_decode_step(params, cfg, tokens, caches, int(cur_index))
+    if tokens.ndim == 2:
+        x = embed_lookup(params["embed"], tokens)
+    else:
+        x = tokens
+    x = x.to(dtype)
     positions = torch.full((1,), int(cur_index), device=x.device)
     x = _run_stack(params, x, cfg, positions=positions, caches=caches,
                    cur_index=int(cur_index))
@@ -244,22 +328,43 @@ def decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 
 def _block_cache_shape(cfg: ModelConfig, blk: BlockCfg, batch: int, seq: int,
                        dtype=torch.bfloat16) -> dict:
-    length = min(blk.window, seq) if blk.kind == "swa" else seq
-    shape = (batch, cfg.n_kv_heads, length, cfg.head_dim)
-    axes = ("batch", "kv_heads", "kv_seq" if blk.kind == "attn" else None, None)
-    return {"k": (shape, dtype, axes), "v": (shape, dtype, axes)}
+    if blk.kind in ("attn", "swa"):
+        length = min(blk.window, seq) if blk.kind == "swa" else seq
+        shape = (batch, cfg.n_kv_heads, length, cfg.head_dim)
+        axes = ("batch", "kv_heads", "kv_seq" if blk.kind == "attn" else None,
+                None)
+        return {"k": (shape, dtype, axes), "v": (shape, dtype, axes)}
+    if blk.kind == "rglru":
+        return {
+            "h": ((batch, cfg.rnn_width), torch.float32, ("batch", "mlp")),
+            "conv": ((batch, cfg.conv_width - 1, cfg.rnn_width),
+                     torch.float32, ("batch", None, "mlp")),
+        }
+    if blk.kind == "ssd":
+        d = ssd_lib.ssd_dims(cfg)
+        return {
+            "ssm": ((batch, d["n_heads"], d["p"], d["n"]), torch.float32,
+                    ("batch", None, None, None)),
+            "conv": ((batch, cfg.conv_width - 1, d["conv_dim"]),
+                     torch.float32, ("batch", None, None)),
+        }
+    raise ValueError(blk.kind)
 
 
-def cache_layout(cfg: ModelConfig, batch: int, seq: int) -> dict:
-    """(shape, dtype, logical_axes) tree matching the cache structure."""
-    _check_ported(cfg)
+def cache_layout(cfg: ModelConfig, batch: int, seq: int,
+                 dtype: torch.dtype = torch.bfloat16) -> dict:
+    """(shape, dtype, logical_axes) tree matching the cache structure; for
+    the encoder-decoder, ``seq`` is the encoder's frame count.  K/V rings
+    take ``dtype``; recurrent states are float32."""
+    if cfg.encdec:
+        return _encdec_cache_layout(cfg, batch, seq, dtype)
     pattern = {}
     for i, blk in enumerate(cfg.pattern):
         pattern[f"b{i}"] = {
-            name: ((cfg.repeats,) + shape, dtype, ("layers",) + axes)
-            for name, (shape, dtype, axes)
-            in _block_cache_shape(cfg, blk, batch, seq).items()}
-    tail = {f"t{i}": _block_cache_shape(cfg, blk, batch, seq)
+            name: ((cfg.repeats,) + shape, dt, ("layers",) + axes)
+            for name, (shape, dt, axes)
+            in _block_cache_shape(cfg, blk, batch, seq, dtype).items()}
+    tail = {f"t{i}": _block_cache_shape(cfg, blk, batch, seq, dtype)
             for i, blk in enumerate(cfg.tail)}
     return {"pattern": pattern, "tail": tail}
 
@@ -269,7 +374,134 @@ def _is_layout_leaf(t) -> bool:
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq: int,
-               device: "torch.device | str") -> dict:
+               device: "torch.device | str",
+               dtype: torch.dtype = torch.bfloat16) -> dict:
     """Zeroed caches for ``batch`` sequences of up to ``seq`` tokens."""
     return tree_map(lambda t: torch.zeros(t[0], dtype=t[1], device=device),
-                    cache_layout(cfg, batch, seq), is_leaf=_is_layout_leaf)
+                    cache_layout(cfg, batch, seq, dtype),
+                    is_leaf=_is_layout_leaf)
+
+
+# --------------------------------------------------------------------------
+# Encoder-decoder (whisper-tiny)
+# --------------------------------------------------------------------------
+
+_ENCDEC_BLOCK = BlockCfg("attn", "dense")
+
+
+def _encdec_specs(cfg: ModelConfig) -> dict:
+    specs: dict[str, Any] = {
+        "embed": embed_specs(cfg.vocab, cfg.d_model),
+        # specified and initialised, but never read (ROADMAP R8)
+        "enc_pos": ParamSpec((1, 8192, cfg.d_model), (None, None, "embed"),
+                             init="scaled", scale=0.02),
+        "final_norm": ParamSpec((cfg.d_model,), (None,), init="zeros"),
+        "enc_final_norm": ParamSpec((cfg.d_model,), (None,), init="zeros"),
+    }
+    specs["encoder"] = {f"e{i}": _block_specs(cfg, _ENCDEC_BLOCK)
+                        for i in range(cfg.enc_layers)}
+    dec = {}
+    for i in range(cfg.repeats):
+        d = _block_specs(cfg, _ENCDEC_BLOCK)
+        d["cross"] = _attn_specs(cfg)
+        d["ln_cross"] = ParamSpec((cfg.d_model,), (None,), init="zeros")
+        dec[f"d{i}"] = d
+    specs["decoder"] = dec
+    return specs
+
+
+def _encdec_encode(params: dict, cfg: ModelConfig,
+                   frames: torch.Tensor) -> torch.Tensor:
+    """frames: (B, S_enc, D) precomputed conv-frontend embeddings (a stub
+    frontend) -> encoder output, non-causal self-attention throughout, in
+    the dtype of the compute copies ``params``."""
+    x = frames.to(params["embed"].dtype)
+    pos = torch.arange(x.shape[1], device=x.device)
+    for i in range(cfg.enc_layers):
+        x, _ = _apply_block(params["encoder"][f"e{i}"], x, cfg, _ENCDEC_BLOCK,
+                            positions=pos, cache=None, cur_index=None,
+                            causal=False)
+    return rms_norm(x, params["enc_final_norm"], cfg.norm_eps)
+
+
+def _cross_attend(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                  k: torch.Tensor, v: torch.Tensor, *,
+                  decode: bool) -> torch.Tensor:
+    """The cross-attention residual: x's queries against the encoder's K/V,
+    every frame valid (a decode step attends the cached K/V)."""
+    h = rms_norm(x, p["ln_cross"], cfg.norm_eps)
+    q = torch.einsum("bsd,dhk->bhsk", h, p["cross"]["wq"])
+    if decode:
+        o = attn.decode_attention(q, k, v, cur_index=k.shape[2] - 1)
+    else:
+        o = attn.flash_attention(q, k, v, causal=False)
+    return x + torch.einsum("bhsk,hkd->bsd", o, p["cross"]["wo"])
+
+
+def _encdec_forward(params: dict, cfg: ModelConfig, enc_out: torch.Tensor,
+                    tokens: torch.Tensor) -> torch.Tensor:
+    """The decoder over whole token sequences (B, S) against ``enc_out``:
+    logits (B, S, V).  The decoder body of the JAX package's
+    ``_encdec_loss``; ``params`` are the compute copies."""
+    x = embed_lookup(params["embed"], tokens)
+    pos = torch.arange(x.shape[1], device=x.device)
+    for i in range(cfg.repeats):
+        p = params["decoder"][f"d{i}"]
+        x, _ = _apply_block(p, x, cfg, _ENCDEC_BLOCK, positions=pos,
+                            cache=None, cur_index=None)
+        ek = torch.einsum("bsd,dhk->bhsk", enc_out, p["cross"]["wk"])
+        ev = torch.einsum("bsd,dhk->bhsk", enc_out, p["cross"]["wv"])
+        x = _cross_attend(p, x, cfg, ek, ev, decode=False)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return x @ params["embed"].T
+
+
+def _encdec_cache_layout(cfg: ModelConfig, batch: int, seq: int,
+                         dtype: torch.dtype) -> dict:
+    """Decoder caches: self-attention over ``dec_seq`` tokens and the cross
+    K/V over ``seq`` frames."""
+    self_shape = (batch, cfg.n_kv_heads, cfg.dec_seq, cfg.head_dim)
+    cross_shape = (batch, cfg.n_kv_heads, seq, cfg.head_dim)
+    axes_self = ("batch", "kv_heads", None, None)
+    axes_cross = ("batch", "kv_heads", "kv_seq", None)
+    return {
+        f"d{i}": {
+            "k": (self_shape, dtype, axes_self),
+            "v": (self_shape, dtype, axes_self),
+            "ck": (cross_shape, dtype, axes_cross),
+            "cv": (cross_shape, dtype, axes_cross),
+        } for i in range(cfg.repeats)
+    }
+
+
+def encdec_prefill(params: dict, cfg: ModelConfig, batch: dict,
+                   caches: dict, *, dtype: torch.dtype = torch.bfloat16) -> dict:
+    """Encode ``batch["frames"]`` (B, S_enc, D) and stage each decoder
+    layer's cross-attention K/V into ``caches`` (in place)."""
+    return _encdec_stage(cast_params(params, dtype), cfg, batch["frames"],
+                         caches)
+
+
+def _encdec_stage(params: dict, cfg: ModelConfig, frames: torch.Tensor,
+                  caches: dict) -> dict:
+    """``encdec_prefill`` in the dtype of ``params`` (the compute copies)."""
+    enc_out = _encdec_encode(params, cfg, frames)
+    for i in range(cfg.repeats):
+        p, c = params["decoder"][f"d{i}"], caches[f"d{i}"]
+        c["ck"].copy_(torch.einsum("bsd,dhk->bhsk", enc_out, p["cross"]["wk"]))
+        c["cv"].copy_(torch.einsum("bsd,dhk->bhsk", enc_out, p["cross"]["wv"]))
+    return caches
+
+
+def _encdec_decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+                        caches: dict, cur_index: int):
+    x = embed_lookup(params["embed"], tokens)
+    pos = torch.full((1,), cur_index, device=x.device)
+    for i in range(cfg.repeats):
+        p, c = params["decoder"][f"d{i}"], caches[f"d{i}"]
+        x, _ = _apply_block(p, x, cfg, _ENCDEC_BLOCK, positions=pos,
+                            cache={"k": c["k"], "v": c["v"]},
+                            cur_index=cur_index)
+        x = _cross_attend(p, x, cfg, c["ck"], c["cv"], decode=True)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return x @ params["embed"].T, caches

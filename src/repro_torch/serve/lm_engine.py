@@ -1,9 +1,15 @@
 """Batched LM serving engine: prefill + greedy/temperature decode.
 
-The JAX package's ``serve/lm_engine.py`` on the port's attention stacks
-(:mod:`repro_torch.models.lm`).  ``generate`` stops decoding once the final
-token is emitted, so ``decode_calls`` counts exactly ``max_new_tokens - 1``
-steps per call (the JAX package's dead-final-decode fix).
+The JAX package's ``serve/lm_engine.py`` on the port's models
+(:mod:`repro_torch.models.lm`): every config whose prompts are token ids
+(attention, RG-LRU, SSD and MoE stacks).  Configs with a modality frontend
+prefill from embeddings and the encoder-decoder from frames; they run
+through :func:`~repro_torch.models.lm.prefill` /
+:func:`~repro_torch.models.lm.encdec_prefill` and ``decode_step``, and
+``generate`` rejects them, as the JAX package's does.  ``generate`` stops
+decoding once the final token is emitted, so ``decode_calls`` counts
+exactly ``max_new_tokens - 1`` steps per call (the JAX package's
+dead-final-decode fix).
 
 The bf16 compute copies of the weights are made once, when the engine is
 built; the JAX package casts inside every jitted step instead.  Greedy
@@ -56,6 +62,8 @@ class Engine:
 
     def generate(self, prompts, max_new_tokens: int = 32) -> torch.Tensor:
         """prompts: (B, S0) token ids -> (B, S0 + max_new_tokens) int64."""
+        if self.cfg.encdec or not self.cfg.uses_tokens:
+            raise ValueError(f"{self.cfg.name} does not take token prompts")
         prompts = torch.as_tensor(prompts, device=self.device).long()
         b, s0 = prompts.shape
         caches = lm.init_cache(self.cfg, b, self.scfg.max_seq, self.device)

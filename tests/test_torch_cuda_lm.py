@@ -1,5 +1,5 @@
-"""The placed runner, the XOR delta and the LM engine on the card (``gpu``
-marker).
+"""The placed runner, the XOR delta, the LM engine and the RG-LRU / SSD /
+MoE / encoder-decoder / embeddings stacks on the card (``gpu`` marker).
 
 Without a card these tests skip.  On one they run with
 ``python -m pytest -m gpu tests/test_torch_cuda_lm.py``; this file imports
@@ -19,7 +19,7 @@ from repro_torch.flash.device import FlashDevice
 from repro_torch.flash.geometry import SSDConfig
 from repro_torch.kernels import cuda
 from repro_torch.models import lm
-from repro_torch.models.specs import flatten
+from repro_torch.models.specs import flatten, init_tree, tree_map
 from repro_torch.serve import Engine, ServeConfig
 
 
@@ -46,7 +46,7 @@ def _dag(sess, rng, n_pairs: int, n_bits: int):
 
 
 @pytest.mark.gpu
-def test_placed_runner_matches_unplaced_on_four_streams(card):
+def test_placed_runner_matches_unplaced_on_four_streams(card, monkeypatch):
     """``shard_devices=["cuda"] * 4``: four streams on one card; the placed
     runner's words and counts equal the unplaced runner's and numpy's."""
     for encoding in ("mlc", "tlc", "reduced-mlc"):
@@ -74,6 +74,16 @@ def test_placed_runner_matches_unplaced_on_four_streams(card):
         assert torch.equal(outs[0], outs[1])
     arena = FlashDevice(device=card, shard_devices=["cuda"] * 4).arena
     assert len({arena.stream(s).cuda_stream for s in range(4)}) == 4
+    # a partial handed to the compute stream ("cuda", its tensor on
+    # "cuda:0"): that one stream waits once for the side stream's event
+    waits = []
+    real_wait = torch.cuda.Stream.wait_event
+    monkeypatch.setattr(torch.cuda.Stream, "wait_event",
+                        lambda s, ev: waits.append(s) or real_wait(s, ev))
+    with arena.on_slot(1):
+        part = torch.ones(8, device=card)
+    arena.to_compute(part, arena.ready(1))
+    assert len(waits) == 1
 
 
 @pytest.mark.gpu
@@ -131,3 +141,98 @@ def test_lm_engine_deterministic_and_decode_matches_prefill(card):
                              lm.init_cache(cfg, 2, 64, card))
         err = (logits.float() - full.float()).abs().max()
         assert err <= 2e-2 * full.float().abs().max()
+
+
+def _reduced(arch: str):
+    """The reduced config of ``arch`` (the cuts of
+    ``tests/test_arch_smoke.py``, windows cut to 32)."""
+    cfg = get_config(arch)
+    kw = dict(d_model=64, vocab=512, repeats=2,
+              rnn_width=64 if cfg.rnn_width else 0,
+              ssm_state=32 if cfg.ssm_state else 0,
+              ssm_head_dim=16 if cfg.ssm_state else 64,
+              n_experts=4 if cfg.n_experts else 0,
+              top_k=min(cfg.top_k, 2) if cfg.top_k else 0,
+              enc_layers=2 if cfg.enc_layers else 0,
+              dec_seq=32 if cfg.encdec else 448)
+    if cfg.n_heads:
+        kw.update(n_heads=min(cfg.n_heads, 4), head_dim=16, d_ff=128,
+                  n_kv_heads=1 if cfg.n_kv_heads == 1 else 2)
+    win = lambda bs: tuple(  # noqa: E731
+        dataclasses.replace(b, window=32 if b.window else 0) for b in bs)
+    return dataclasses.replace(cfg, pattern=win(cfg.pattern),
+                               tail=win(cfg.tail), **kw)
+
+
+def _steps(params, cfg, device, inputs, tokens) -> list:
+    """Float32 logits of a prefill and 4 decode steps (the encoder-decoder:
+    an encode and 5 decode steps), through the model's own layer functions
+    with float32 caches on ``device``."""
+    params = tree_map(lambda t: t.to(device), params)
+    seq = inputs.shape[1] if cfg.encdec else 96    # frames / max tokens
+    caches = tree_map(lambda t: t.float(), lm.init_cache(cfg, 2, seq, device))
+    inputs, tokens = inputs.to(device), tokens.to(device)
+    out = []
+    if cfg.encdec:
+        lm._encdec_stage(params, cfg, inputs, caches)
+        for i in range(tokens.shape[1]):
+            logits, _ = lm._encdec_decode_step(params, cfg, tokens[:, i:i + 1],
+                                               caches, i)
+            out.append(logits)
+        return out
+    s = inputs.shape[1]
+    x = lm._run_stack(params, inputs, cfg, positions=torch.arange(
+        s, device=device), caches=caches)
+    out.append(lm._logits(params, cfg, x[:, -1:]))
+    for i in range(tokens.shape[1]):
+        x = lm._run_stack(params, params["embed"][tokens[:, i:i + 1]], cfg,
+                          positions=torch.tensor([s + i], device=device),
+                          caches=caches, cur_index=s + i)
+        out.append(lm._logits(params, cfg, x))
+    return out
+
+
+@pytest.mark.gpu
+def test_new_stacks_on_card_match_cpu(card, monkeypatch):
+    """The reduced mamba2, recurrentgemma, mixtral, internvl2 and whisper
+    configs: in float32 (matmuls without TF32) the card's logits equal the
+    CPU's within 1e-3 of their scale, prefill and every decode step; the
+    served bfloat16 path on the card gives finite logits, and for mamba2
+    (no attention: well-conditioned in bfloat16) they equal the CPU's
+    within 2e-2."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    for arch in ("mamba2-130m", "recurrentgemma-9b", "mixtral-8x7b",
+                 "internvl2-26b", "whisper-tiny"):
+        cfg = _reduced(arch)
+        params = init_tree(0, lm.build_specs(cfg), "cpu")
+        g = torch.Generator().manual_seed(1)
+        inputs = (torch.randint(1, cfg.vocab, (2, 64), generator=g)
+                  if cfg.uses_tokens else torch.randn(2, 64, 64, generator=g))
+        tokens = torch.randint(1, cfg.vocab, (2, 5 if cfg.encdec else 4),
+                               generator=g)
+        x = params["embed"][inputs] if cfg.uses_tokens else inputs
+        for got, want in zip(_steps(params, cfg, card, x, tokens),
+                             _steps(params, cfg, "cpu", x, tokens)):
+            err = (got.cpu() - want).abs().max() / want.abs().max()
+            assert err <= 1e-3, (arch, float(err))
+        served = {}
+        for dev in ("cpu", card):
+            compute = lm.cast_params(tree_map(lambda t: t.to(dev), params))
+            if cfg.encdec:
+                caches = lm.encdec_prefill(compute, cfg,
+                                           {"frames": inputs.to(dev)},
+                                           lm.init_cache(cfg, 2, 64, dev))
+                logits, _ = lm.decode_step(compute, cfg, tokens[:, :1].to(dev),
+                                           caches, 0)
+            else:
+                key = "tokens" if cfg.uses_tokens else "embeds"
+                logits, caches = lm.prefill(compute, cfg,
+                                            {key: inputs.to(dev)},
+                                            lm.init_cache(cfg, 2, 96, dev))
+                logits, _ = lm.decode_step(compute, cfg, tokens[:, :1].to(dev),
+                                           caches, 64)
+            served[str(dev)] = logits.float().cpu()
+        got, want = served[str(card)], served["cpu"]
+        assert bool(torch.isfinite(got).all()), arch
+        if arch == "mamba2-130m":
+            assert (got - want).abs().max() <= 2e-2 * want.abs().max()

@@ -136,9 +136,9 @@ def test_layers_and_attention_match_jax_on_f32():
                                      entry_positions=jnp.asarray(
                                          np.where(part < 0, 99, part))))
     for arch in ("mixtral-8x7b", "mamba2-130m", "whisper-tiny",
-                 "internvl2-26b"):
+                 "internvl2-26b"):       # training is not ported yet
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            lm.build_specs(configs.get_config(arch))
+            lm.forward_loss({}, configs.get_config(arch), {})
 
 
 @pytest.mark.parametrize("arch,prompt,max_seq", [("qwen3-1.7b", 16, 32),
