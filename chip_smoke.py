@@ -105,7 +105,26 @@
    with the bfloat16 pass's distance from the float32 one.  Prints prefill and decode
    times, the card's busy share of a decode step, tokens/s and the peak
    allocated memory.
-10. Prints the ``kernels`` JSON line (launches summed over the seven
+10. Training phase: the training example's MCFlash filter (the quality
+   and dedup bitmaps of 131072 corpus shards ANDed and counted in flash,
+   equal to numpy's count); ``TrainLoop`` over gemma3-1b at its published
+   widths and depth from seed 0 (``TokenPipeline`` batches of 4 x 512
+   tokens, float32 master weights and AdamW moments, remat on, lr 3e-4
+   after 2 warmup steps): preempted after step 12, restarted from its
+   checkpoint with the restored state bit-exact and the first resumed
+   loss within 1e-4 of the uninterrupted run's, run to step 16; every
+   loss finite, the first within 1.0 of ln(262144), the last four below
+   the first four; one step with microbatches=2 within 2e-2 of one
+   batch's gradient norm; the step timed (CUDA events), profiled and its
+   model FLOPs set against the bf16 peak; the XOR delta of the whole
+   trained tree between checkpoints 8 and 16 bit-exact through
+   ``bitwise_reduce``.  The phase's kernel calls must equal the CPU
+   rehearsal's (``TRAIN_LAUNCHES``), each recorded call its plain
+   version.  Then one full-width pattern unit (5 ``swa`` layers and 1
+   ``attn``) in float32 on 1 x 512 tokens: the loss within 1e-5 and every
+   gradient within 1e-3 of the CPU's; and mamba2-130m trained 4 steps of
+   4 x 256 tokens at its published widths, its losses finite.
+11. Prints the ``kernels`` JSON line (launches summed over the eight
    paths), then a last line ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero before the last line.  Without a
@@ -118,6 +137,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -200,6 +220,43 @@ LM_ARCHS = {
     "internvl2-26b": dict(batch=4, patches=256, new=16, max_seq=512,
                           repeats=4),
 }
+
+#: the training phase: gemma3-1b at its published widths and depth, from
+#: seed 0, on TokenPipeline batches of 4 x 512 tokens (512 is both the
+#: sliding window and the cross-entropy chunk), float32 master weights and
+#: AdamW moments, remat on; 16 steps, checkpoints every 8, preempted after
+#: step 12 and restarted
+TRAIN_ARCH = "gemma3-1b"
+TRAIN_BATCH, TRAIN_SEQ = 4, 512
+TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_PREEMPT = 16, 8, 12
+TRAIN_LR, TRAIN_WARMUP = 3e-4, 2
+TRAIN_SEED = 0
+#: the first loss lies within this of ln(vocab) (initial logits have a std
+#: of about 0.02 * sqrt(d_model), 0.68 at gemma3-1b's width)
+TRAIN_FIRST_LOSS_TOL = 1.0
+#: the restarted loop's first loss against the uninterrupted run's
+#: (relative; the same state gives the same forward pass)
+TRAIN_RESUME_TOL = 1e-4
+#: microbatches=2 against one batch: the gradient norm (relative; each
+#: microbatch's bfloat16 gradients are rounded before they are summed)
+TRAIN_MB_TOL = 2e-2
+#: float32 forward_loss of one full-width pattern unit, card against CPU:
+#: the loss (relative) and each gradient leaf (of its largest magnitude)
+TRAIN_F32_LOSS_TOL, TRAIN_F32_GRAD_TOL = 1e-5, 1e-3
+TRAIN_F32_SEQ = 512
+#: mamba2-130m at its published widths and depth: steps of 4 x 256 tokens
+SSM_TRAIN_ARCH, SSM_TRAIN_STEPS, SSM_TRAIN_SEQ = "mamba2-130m", 4, 256
+#: the corpus shards the training example's BitmapFilter selects from
+TRAIN_SHARDS = 131072
+#: kernel calls of the training phase per kernel, from its rehearsal on the
+#: CPU (the same filter on the default SSD: one sense of the pair's AND and
+#: its popcount; the delta of a tree with gemma3-1b's 90 leaves, one reduce
+#: per leaf and direction)
+TRAIN_LAUNCHES = {"mlc_sense": 1, "sense_reduce": 0,
+                  "sense_reduce_popcount": 0, "bitwise_reduce": 180,
+                  "popcount_rows": 1}
+#: the H100's dense bfloat16 peak (NVIDIA's data sheet, SXM, at 700 W)
+BF16_PEAK_FLOPS = 989e12
 
 KERNELS = {
     "mlc_sense": ("src/repro_torch/csrc/mlc_sense.cu",
@@ -1979,9 +2036,9 @@ def lm_ring_wrap(eng, gpu: str, batch: int,
     padded = torch.nn.functional.pad(out, (0, seq - out.shape[1]))
     with torch.no_grad():
         x = embed_lookup(compute["embed"], padded).to(torch.bfloat16)
-        x = lm._run_stack(compute, x, cfg,
-                          positions=torch.arange(seq, device=device),
-                          caches=lm.init_cache(cfg, batch, seq, device))
+        x, _ = lm._run_stack(compute, x, cfg,
+                             positions=torch.arange(seq, device=device),
+                             caches=lm.init_cache(cfg, batch, seq, device))
         full = lm._logits(compute, cfg, x[:, prompt:prompt + new - 1]).float()
     caches = lm.init_cache(cfg, batch, max_seq, device)
     _, caches = lm.prefill(compute, cfg, {"tokens": out[:, :prompt]}, caches)
@@ -2014,6 +2071,432 @@ def lm_ring_wrap(eng, gpu: str, batch: int,
           f"decode within {worst['before_wrap']:.3g} / "
           f"{worst['after_wrap']:.3g} (before / after the wrap) of one "
           f"forward pass (tolerance {LM_TOL}); {res['seconds']:.2f} s",
+          flush=True)
+    return res
+
+
+# -- phase 10: LM training at full width -----------------------------------------
+
+def train_flops(cfg, n_params: int, tokens: int, seq: int) -> float:
+    """Model FLOPs of one training step: 6 * parameters * tokens plus the
+    attention term 12 * layers * heads * head_dim * context per token (the
+    PaLM convention; remat's extra forward pass is not counted)."""
+    ctx = sum(min(b.window, seq) if b.kind == "swa" else seq
+              for b in cfg.pattern * cfg.repeats + cfg.tail
+              if b.kind in ("attn", "swa"))
+    return 6.0 * n_params * tokens + 12.0 * cfg.n_heads * cfg.head_dim * ctx \
+        * tokens
+
+
+def step_profile(fn, what: str) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: the card's kernel ms,
+    the kernels launched and the six that took longest (None when no
+    session recorded a kernel)."""
+    prof = card_profile(fn, what)
+    if prof is None:
+        return {"device_ms": None, "kernels": None, "top": None}
+    rows = [(e.self_device_time_total, e.count, e.key)
+            for e in prof.key_averages() if e.self_device_time_total > 0]
+    rows.sort(reverse=True)
+    return {"device_ms": sum(us for us, _, _ in rows) / 1e3,
+            "kernels": sum(n for _, n, _ in rows),
+            "top": [{"kernel": key[:60], "ms": us / 1e3, "count": n}
+                    for us, n, key in rows[:6]]}
+
+
+@contextlib.contextmanager
+def timing_checkpoints(ckpt_lib):
+    """While the block runs, the seconds of each ``save`` and ``restore``
+    of ``ckpt_lib`` (the training loop's checkpoint module), by name."""
+    spent: dict = {"save": [], "restore": []}
+
+    def wrap(name: str):
+        real = getattr(ckpt_lib, name)
+
+        def call(*args, **kwargs):
+            t = time.perf_counter()
+            out = real(*args, **kwargs)
+            spent[name].append(time.perf_counter() - t)
+            return out
+        return real, call
+
+    reals = {}
+    for name in spent:
+        reals[name], call = wrap(name)
+        setattr(ckpt_lib, name, call)
+    try:
+        yield spent
+    finally:
+        for name, real in reals.items():
+            setattr(ckpt_lib, name, real)
+
+
+def train_filter(device: str) -> dict:
+    """The training example's in-flash data filter: the quality and dedup
+    bitmaps of TRAIN_SHARDS corpus shards (numpy seed 0) ANDed and counted
+    by ``BitmapFilter``, equal to numpy's count; every recorded kernel call
+    held against its plain version."""
+    from repro_torch.api.session import ComputeSession
+    from repro_torch.data import BitmapFilter
+
+    rng = np.random.default_rng(0)
+    quality = (rng.random(TRAIN_SHARDS) < 0.95).astype(np.uint8)
+    dedup = (rng.random(TRAIN_SHARDS) < 0.98).astype(np.uint8)
+    sess = ComputeSession(device, seed=17)
+    bf = BitmapFilter(TRAIN_SHARDS, session=sess)
+    with recording(sess.backend) as rec:
+        bf.add_pair("quality", quality, "dedup", dedup)
+        kept = bf.count([("quality", "dedup")])
+        sync()
+    if kept != int((quality & dedup).sum()):
+        fail(f"train: the filter kept {kept} shards, numpy counts "
+             f"{int((quality & dedup).sum())}")
+    return {"kept": kept, "calls": dict(rec.counts),
+            "checks": hold_recorded(rec.calls)}
+
+
+def train_unit_f32(cfg, device: str) -> dict:
+    """One full-width pattern unit (``repeats=1``, no tail) in float32: the
+    loss and every gradient of ``forward_loss`` on 1 x TRAIN_F32_SEQ tokens
+    on ``device`` against the CPU's on the same weights (drawn on the CPU:
+    a card's generator draws other values from the same seed)."""
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.models import lm
+    from repro_torch.models.specs import flatten, init_tree, tree_map
+
+    unit = dataclasses.replace(cfg, repeats=1, tail=())
+    tokens = TokenPipeline(DataConfig(unit.vocab, TRAIN_F32_SEQ, 1,
+                                      TRAIN_SEED)).batch_at(0)["tokens"]
+
+    weights = init_tree(TRAIN_SEED, lm.build_specs(unit), "cpu")
+
+    def run(dev):
+        params = tree_map(lambda t: t.to(dev).requires_grad_(), weights)
+        loss, _ = lm.forward_loss(params, unit, {"tokens": tokens.to(dev)},
+                                  dtype=torch.float32)
+        loss.backward()
+        return float(loss.detach()), {k: t.grad for k, t in flatten(params)}
+
+    t = time.perf_counter()
+    loss, grads = run(device)
+    cpu_loss, cpu_grads = run("cpu")
+    loss_err = abs(loss - cpu_loss) / abs(cpu_loss)
+    worst, where = 0.0, None
+    for path, want in cpu_grads.items():
+        got = grads[path].cpu()
+        err = float((got - want).abs().max() / want.abs().max())
+        if where is None or not err <= worst:
+            worst, where = err, path
+    if not loss_err <= TRAIN_F32_LOSS_TOL:
+        fail(f"train: float32 loss of one unit on the card {loss} against "
+             f"the CPU's {cpu_loss} ({loss_err:.3g} relative)")
+    if not worst <= TRAIN_F32_GRAD_TOL:
+        fail(f"train: float32 gradient {where} on the card lies {worst:.3g} "
+             f"of its scale from the CPU's (tolerance {TRAIN_F32_GRAD_TOL})")
+    return {"layers": unit.n_layers, "tokens": TRAIN_F32_SEQ, "loss": loss,
+            "loss_rel_err": loss_err, "worst_grad_err": worst,
+            "worst_grad_leaf": where, "seconds": time.perf_counter() - t}
+
+
+def train_ssm(device: str, ckpt_dir: Path) -> dict:
+    """mamba2-130m at its published widths and depth, SSM_TRAIN_STEPS steps
+    of 4 x SSM_TRAIN_SEQ tokens: finite losses and the step times."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.models.specs import count_params
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train.loop import LoopConfig, TrainLoop
+
+    cfg = get_config(SSM_TRAIN_ARCH)
+    on_card = device == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    loop = TrainLoop(cfg, LoopConfig(total_steps=SSM_TRAIN_STEPS,
+                                     ckpt_every=SSM_TRAIN_STEPS,
+                                     ckpt_dir=str(ckpt_dir), log_every=0,
+                                     seed=TRAIN_SEED),
+                     opt_cfg=AdamWConfig(lr=TRAIN_LR,
+                                         warmup_steps=TRAIN_WARMUP,
+                                         total_steps=SSM_TRAIN_STEPS),
+                     global_batch=TRAIN_BATCH, seq_len=SSM_TRAIN_SEQ,
+                     device=device)
+    res = loop.run()
+    losses = [m["loss"] for m in res["metrics"]]
+    if len(losses) != SSM_TRAIN_STEPS or not all(np.isfinite(losses)):
+        fail(f"train: {cfg.name} losses {losses}")
+    batch = loop.batch_fn(SSM_TRAIN_STEPS)
+
+    def step():
+        loop.step_fn(res["params"], res["opt"], batch)
+
+    step_ms = time_ms(step, 3, warmup=1) if on_card else None
+    prof = step_profile(step, f"{cfg.name} train step") if on_card else {}
+    n_params = count_params(lm.build_specs(cfg))
+    tokens = TRAIN_BATCH * SSM_TRAIN_SEQ
+    flops = train_flops(cfg, n_params, tokens, SSM_TRAIN_SEQ)
+    dev_ms = prof.get("device_ms")
+    return {"arch": cfg.name, "params": n_params, "layers": cfg.n_layers,
+            "losses": losses,
+            "step_s": [m["step_time_s"] for m in res["metrics"]],
+            "grad_norm": [m["grad_norm"] for m in res["metrics"]],
+            "step_ms": step_ms, "step_device_ms": dev_ms,
+            "step_kernels": prof.get("kernels"), "step_top": prof.get("top"),
+            "busy_share": (None if dev_ms is None or step_ms is None
+                           else dev_ms / step_ms),
+            "tokens_per_s": tokens / step_ms * 1e3 if step_ms else None,
+            "model_flops": flops,
+            "flops_share": (flops / (step_ms * 1e-3) / BF16_PEAK_FLOPS
+                            if step_ms else None),
+            "peak_allocated_gib": (torch.cuda.max_memory_allocated() / 2 ** 30
+                                   if on_card else None)}
+
+
+def train_phase(errs: dict, gpu: str, device: str = "cuda", cfg=None,
+                ckpt_dir: "Path | None" = None, steps: int = TRAIN_STEPS,
+                ckpt_every: int = TRAIN_CKPT_EVERY,
+                preempt: int = TRAIN_PREEMPT, batch: int = TRAIN_BATCH,
+                seq: int = TRAIN_SEQ) -> dict:
+    """The training example's MCFlash filter, then ``TrainLoop`` over
+    gemma3-1b at full width: preempted after step ``preempt``, restarted
+    from its checkpoint (the restored state bit-exact, the first resumed
+    loss the uninterrupted run's), run to ``steps``; the losses finite,
+    the first near ln(vocab), the last four below the first four; one
+    step with microbatches=2 against one batch; the step timed; the XOR
+    delta of the whole tree between checkpoints ``ckpt_every`` and
+    ``steps`` bit-exact through ``bitwise_reduce``; then one full-width
+    pattern unit's float32 gradients on the card against the CPU's, and
+    mamba2-130m's SSD stack trained at its published widths."""
+    from repro_torch.checkpoint import ckpt as ckpt_lib
+    from repro_torch.checkpoint import delta as delta_mod
+    from repro_torch.checkpoint import delta_apply, delta_encode, delta_sparsity
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import cuda
+    from repro_torch.models import lm
+    from repro_torch.models.specs import count_params, flatten
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train.loop import LoopConfig, TrainLoop
+    from repro_torch.train.step import make_train_step
+
+    on_card = device == "cuda"
+    if on_card:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    cfg = cfg or get_config(TRAIN_ARCH)
+    ckpt_dir = ckpt_dir or ROOT / "build" / "chip_smoke_train"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    cuda.reset_launches()
+    calls = dict.fromkeys(KERNELS, 0)
+    checked: dict = {}
+
+    def fold(counts: dict, checks: dict) -> None:
+        for name, n in counts.items():
+            calls[name] += n
+        for name, err in checks.items():
+            checked[name] = max(checked.get(name, 0), err)
+
+    filt = train_filter(device)
+    fold(filt["calls"], filt["checks"])
+    filter_s = time.perf_counter() - t0
+
+    opt_cfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                          total_steps=steps)
+
+    def make_loop():
+        return TrainLoop(cfg, LoopConfig(total_steps=steps,
+                                         ckpt_every=ckpt_every,
+                                         ckpt_dir=str(ckpt_dir), log_every=0,
+                                         seed=TRAIN_SEED),
+                         opt_cfg=opt_cfg, global_batch=batch, seq_len=seq,
+                         device=device)
+
+    if on_card:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    first = make_loop()
+    data_at = first.batch_fn
+
+    def preempting(step):
+        if step == preempt - 1:
+            first.request_preemption()
+        return data_at(step)
+
+    first.batch_fn = preempting
+    with timing_checkpoints(ckpt_lib) as io_s:
+        res1 = first.run()
+    run1_s = time.perf_counter() - t
+    if res1["last_step"] != preempt or \
+            ckpt_lib.latest_step(ckpt_dir) != preempt:
+        fail(f"train: the preempted run stopped at {res1['last_step']}, "
+             f"checkpoint {ckpt_lib.latest_step(ckpt_dir)}")
+    # the uninterrupted run's next step, from the state the first run saved
+    cont_loss = float(first.step_fn(res1["params"], res1["opt"],
+                                    data_at(preempt))[2]["loss"])
+
+    second = make_loop()
+    saved = {"state": (res1["params"], res1["opt"])}
+    restore_or_init = second.restore_or_init
+    resumed: dict = {}
+
+    def bits(t: torch.Tensor) -> torch.Tensor:
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+    def restore_checked():
+        """The restart's restore, its state held bit for bit against the
+        state the first run saved."""
+        params, opt, step = restore_or_init()
+        want_p, want_o = saved.pop("state")
+        pairs = [(opt.step, want_o.step)]
+        for got, want in ((params, want_p), (opt.m, want_o.m),
+                          (opt.v, want_o.v)):
+            pairs += [(a, b) for (_, a), (_, b) in zip(flatten(got),
+                                                       flatten(want))]
+        resumed["step"] = step
+        resumed["bit_exact"] = all(
+            a.dtype == b.dtype and torch.equal(bits(a), bits(b))
+            for a, b in pairs)
+        return params, opt, step
+
+    second.restore_or_init = restore_checked
+    del res1
+    t = time.perf_counter()
+    with timing_checkpoints(ckpt_lib) as io2_s:
+        res2 = second.run()
+    run2_s = time.perf_counter() - t
+    ckpt_s = {k: io_s[k] + io2_s[k] for k in io_s}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 if on_card else None
+    if resumed.get("step") != preempt or not resumed["bit_exact"]:
+        fail(f"train: the restart resumed at {resumed.get('step')}, state "
+             f"bit-exact {resumed.get('bit_exact')}")
+    losses = [m["loss"] for m in first.metrics_log + second.metrics_log]
+    resume_err = abs(second.metrics_log[0]["loss"] - cont_loss) / cont_loss
+    if len(losses) != steps or not all(np.isfinite(losses)):
+        fail(f"train: losses {losses}")
+    if abs(losses[0] - float(np.log(cfg.vocab))) > TRAIN_FIRST_LOSS_TOL:
+        fail(f"train: first loss {losses[0]:.4f}, ln(vocab) "
+             f"{np.log(cfg.vocab):.4f}")
+    if not np.mean(losses[-4:]) < np.mean(losses[:4]):
+        fail(f"train: the loss did not fall ({losses})")
+    if not resume_err <= TRAIN_RESUME_TOL:
+        fail(f"train: the resumed loss {second.metrics_log[0]['loss']} "
+             f"against the uninterrupted run's {cont_loss}")
+
+    # one more step on the trained state: one batch against two
+    # microbatches, then timed and profiled
+    params, opt = res2["params"], res2["opt"]
+    probe = second.batch_fn(steps)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    one = second.step_fn(params, opt, probe)[2]
+    two = make_train_step(cfg, opt_cfg, microbatches=2)(params, opt,
+                                                        probe)[2]
+    mb_err = abs(float(two["grad_norm"]) / float(one["grad_norm"]) - 1)
+    if not mb_err <= TRAIN_MB_TOL:
+        fail(f"train: microbatches=2 grad_norm {float(two['grad_norm'])} "
+             f"against {float(one['grad_norm'])}")
+
+    def step():
+        second.step_fn(params, opt, probe)
+
+    step_ms = time_ms(step, 3, warmup=1) if on_card else None
+    prof = step_profile(step, "train step") if on_card else {}
+    step_dev_ms = prof.get("device_ms")
+    step_peak = (torch.cuda.max_memory_allocated() / 2 ** 30 if on_card
+                 else None)
+    n_params = count_params(lm.build_specs(cfg))
+    tokens = batch * seq
+    flops = train_flops(cfg, n_params, tokens, seq)
+
+    # the XOR delta of the whole tree, checkpoint ckpt_every -> steps
+    base = ckpt_lib.restore(ckpt_dir, (params, opt), ckpt_every)[0][0]
+    t = time.perf_counter()
+    with recording(delta_mod.BACKENDS[torch.device(device).type]) as rec:
+        delta = delta_encode(base, params)
+        back = delta_apply(base, delta)
+        sync()
+    delta_s = time.perf_counter() - t
+    for (path, got), (_, want) in zip(flatten(back), flatten(params)):
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            fail(f"train: delta round trip of {path} is not bit-exact")
+    zero_share = delta_sparsity(delta)
+    fold(rec.counts, hold_recorded(rec.calls))
+    del base, delta, back, params, opt, res2, second, first, step
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+
+    launches = dict(cuda.launches)
+    fold_errs(errs, checked, launches, "train")
+    if on_card and launches != calls:
+        fail(f"train: launches {launches} differ from the backends' kernel "
+             f"calls {calls}")
+    if calls != TRAIN_LAUNCHES:
+        fail(f"train: kernel calls {calls} differ from the CPU rehearsal's "
+             f"{TRAIN_LAUNCHES}")
+    main_s = time.perf_counter() - t0
+    res = {"arch": cfg.name, "params": n_params, "layers": cfg.n_layers,
+           "batch": batch, "seq": seq, "steps": steps, "losses": losses,
+           "resume_step": resumed["step"], "resume_rel_err": resume_err,
+           "mb2_grad_norm_rel_err": mb_err,
+           "filter_kept": filt["kept"], "filter_s": filter_s,
+           "run1_s": run1_s, "run2_s": run2_s, "checkpoint_s": ckpt_s,
+           "step_ms": step_ms, "step_device_ms": step_dev_ms,
+           "step_kernels": prof.get("kernels"), "step_top": prof.get("top"),
+           "busy_share": (None if step_dev_ms is None or step_ms is None
+                          else step_dev_ms / step_ms),
+           "tokens_per_s": (tokens / step_ms * 1e3 if step_ms else None),
+           "model_flops": flops,
+           "flops_share": (flops / (step_ms * 1e-3) / BF16_PEAK_FLOPS
+                           if step_ms else None),
+           "peak_allocated_gib": peak, "step_peak_allocated_gib": step_peak,
+           "delta_s": delta_s, "delta_zero_word_share": zero_share,
+           "kernel_calls": calls, "launches": launches,
+           "kernel_checks": sorted(checked), "seconds_main": main_s}
+    print(f"train ({gpu}): {cfg.name} ({n_params} parameters, "
+          f"{cfg.n_layers} layers) from seed {TRAIN_SEED}, {steps} steps of "
+          f"{batch} x {seq} tokens, preempted after {preempt} and resumed "
+          f"there bit-exact (first resumed loss {resume_err:.3g} from the "
+          f"uninterrupted run's); losses {[round(x, 4) for x in losses]}; "
+          f"microbatches=2 grad_norm within {mb_err:.3g}; step "
+          f"{step_ms} ms (card busy {step_dev_ms} ms in "
+          f"{res['step_kernels']} kernels, share {res['busy_share']}; top "
+          + json.dumps(res["step_top"]) + f"), {res['tokens_per_s']} "
+          f"tokens/s, "
+          f"{flops:.4g} model FLOPs per step, {res['flops_share']} of the "
+          f"bf16 peak; peak allocated {step_peak} GiB in the steps, {peak} "
+          f"GiB over the runs and the restart; filter kept "
+          f"{filt['kept']}/{TRAIN_SHARDS} shards in {filter_s:.2f} s; XOR "
+          f"delta of checkpoints {ckpt_every} -> {steps} bit-exact in "
+          f"{delta_s:.2f} s, zero words {zero_share:.6f}; runs "
+          f"{run1_s:.2f} s + {run2_s:.2f} s (checkpoint saves "
+          f"{[round(x, 2) for x in ckpt_s['save']]} s, restores "
+          f"{[round(x, 2) for x in ckpt_s['restore']]} s); {main_s:.2f} s; "
+          "launches "
+          + json.dumps(launches), flush=True)
+
+    unit = res["unit_f32"] = train_unit_f32(cfg, device)
+    gc.collect()
+    ssm = res["ssm"] = train_ssm(device, ckpt_dir / "ssm")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    res["seconds"] = time.perf_counter() - t0
+    print(f"train ({gpu}): one {cfg.name} pattern unit ({unit['layers']} "
+          f"layers, full width) in float32 on 1 x {unit['tokens']} tokens: "
+          f"loss {unit['loss']:.6f} within {unit['loss_rel_err']:.3g} of the "
+          f"CPU's, gradients within {unit['worst_grad_err']:.3g} of their "
+          f"scale ({unit['worst_grad_leaf']}) in {unit['seconds']:.2f} s; "
+          f"{ssm['arch']} ({ssm['params']} parameters, {ssm['layers']} "
+          f"layers) {SSM_TRAIN_STEPS} steps of {batch} x {SSM_TRAIN_SEQ}: "
+          f"losses {[round(x, 4) for x in ssm['losses']]}, grad norms "
+          f"{[round(x, 4) for x in ssm['grad_norm']]}, loop step s "
+          f"{[round(x, 4) for x in ssm['step_s']]}; step {ssm['step_ms']} "
+          f"ms (card busy {ssm['step_device_ms']} ms in "
+          f"{ssm['step_kernels']} kernels, share {ssm['busy_share']}; top "
+          + json.dumps(ssm["step_top"]) + f"), {ssm['tokens_per_s']} "
+          f"tokens/s, {ssm['model_flops']:.4g} model FLOPs, "
+          f"{ssm['flops_share']} of the bf16 peak, peak allocated "
+          f"{ssm['peak_allocated_gib']} GiB; phase {res['seconds']:.2f} s",
           flush=True)
     return res
 
@@ -2113,11 +2596,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     lm_run = lm_phase(errs, gpu)
     require_launches(lm_run["launches"], ("bitwise_reduce",), "lm")
+    gc.collect()
+    torch.cuda.empty_cache()
+    train = train_phase(errs, gpu)
+    require_launches(train["launches"], [k for k, n in TRAIN_LAUNCHES.items()
+                                         if n], "train")
     per_path = {"main": launches, "serving": serve["launches"],
                 "recovery": recovery["launches"],
                 "endurance": endurance["launches"],
                 "applications": apps["launches"],
-                "placed": placed["launches"], "lm": lm_run["launches"]}
+                "placed": placed["launches"], "lm": lm_run["launches"],
+                "train": train["launches"]}
     total = {k: sum(p[k] for p in per_path.values()) for k in KERNELS}
 
     kernels = []
@@ -2132,7 +2621,7 @@ def main() -> int:
     record.update(main_path=run, launches=per_path, kernels=kernels,
                   timing=timing, serving=serve, recovery=recovery,
                   endurance=endurance, applications=apps, placed=placed,
-                  lm=lm_run)
+                  lm=lm_run, train=train)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))

@@ -1,10 +1,15 @@
-"""Checkpoints of nested-dict tensor trees: atomic save, manifest, restore.
+"""Checkpoints of tensor trees: atomic save, manifest, restore.
 
 The JAX package's ``checkpoint/ckpt.py`` on the same on-disk layout, so
 either package restores what the other wrote:
 
 - ``<dir>/step_XXXXXXXX/arrays.npz``, one array per leaf keyed by its
   ``/``-joined path, and ``manifest.json`` (step, keys, tree structure);
+- a tree is nested dicts, tuples and ``NamedTuple``s (a training
+  loop saves ``(params, OptState)``); the path keys and the structure
+  string are those ``jax.tree_util`` gives the JAX package: a dict key as
+  it is (sorted), a tuple index as its number, a ``NamedTuple`` field as
+  ``.name``;
 - atomic: written to ``<dir>/tmp.<step>`` and then renamed, so a preempted
   job never sees a torn checkpoint;
 - retention: the newest ``keep`` checkpoints stay.
@@ -14,23 +19,67 @@ from __future__ import annotations
 import json
 import shutil
 from pathlib import Path
-from typing import Any, Tuple
+from typing import Any, Callable, List, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.models.specs import flatten, map_with_path
-
 __all__ = ["save", "latest_step", "restore"]
+
+
+def _is_namedtuple(node) -> bool:
+    return isinstance(node, tuple) and hasattr(node, "_fields")
+
+
+def _children(node) -> "List[Tuple[str, Any]] | None":
+    """A container's (path key, child) pairs in the JAX package's leaf
+    order, or None for a leaf."""
+    if isinstance(node, dict):
+        return [(str(k), node[k]) for k in sorted(node)]
+    if _is_namedtuple(node):
+        return [(f".{f}", getattr(node, f)) for f in node._fields]
+    if isinstance(node, tuple):
+        return [(str(i), c) for i, c in enumerate(node)]
+    return None
+
+
+def _flatten(tree, prefix: str = "") -> List[Tuple[str, Any]]:
+    """``(path, leaf)`` pairs, paths ``/``-joined."""
+    kids = _children(tree)
+    if kids is None:
+        return [(prefix, tree)]
+    return [pair for key, child in kids
+            for pair in _flatten(child, f"{prefix}/{key}" if prefix else key)]
+
+
+def _rebuild(tree, fn: Callable[[str, Any], Any], prefix: str = ""):
+    """``tree``'s structure with each leaf replaced by ``fn(path, leaf)``."""
+    kids = _children(tree)
+    if kids is None:
+        return fn(prefix, tree)
+    new = [_rebuild(child, fn, f"{prefix}/{key}" if prefix else key)
+           for key, child in kids]
+    if isinstance(tree, dict):
+        return dict(zip(sorted(tree), new))
+    if _is_namedtuple(tree):
+        return type(tree)(*new)
+    return type(tree)(new)
 
 
 def _treedef(tree) -> str:
     """The structure in the JAX package's ``PyTreeDef`` notation."""
     def walk(node) -> str:
-        if not isinstance(node, dict):
+        kids = _children(node)
+        if kids is None:
             return "*"
-        return "{" + ", ".join(f"'{k}': {walk(node[k])}"
-                               for k in sorted(node)) + "}"
+        inner = ", ".join(walk(c) for _, c in kids)
+        if isinstance(node, dict):
+            return "{" + ", ".join(f"'{k}': {walk(c)}"
+                                   for k, c in kids) + "}"
+        if _is_namedtuple(node):
+            return (f"CustomNode(namedtuple[{type(node).__name__}], "
+                    f"[{inner}])")
+        return f"({inner},)" if len(kids) == 1 else f"({inner})"
     return f"PyTreeDef({walk(tree)})"
 
 
@@ -41,7 +90,7 @@ def _host(leaf) -> np.ndarray:
 
 
 def save(ckpt_dir: "str | Path", step: int, tree: Any, keep: int = 3) -> Path:
-    """Write ``tree`` (a nested dict of tensors or arrays) as checkpoint
+    """Write ``tree`` (of tensors or arrays) as checkpoint
     ``step`` and drop all but the newest ``keep``."""
     ckpt_dir = Path(ckpt_dir)
     ckpt_dir.mkdir(parents=True, exist_ok=True)
@@ -49,7 +98,7 @@ def save(ckpt_dir: "str | Path", step: int, tree: Any, keep: int = 3) -> Path:
     if tmp.exists():
         shutil.rmtree(tmp)
     tmp.mkdir()
-    arrays = {k: _host(v) for k, v in flatten(tree)}
+    arrays = {k: _host(v) for k, v in _flatten(tree)}
     np.savez(tmp / "arrays.npz", **arrays)
     (tmp / "manifest.json").write_text(json.dumps({
         "step": step, "keys": sorted(arrays), "treedef": _treedef(tree)}))
@@ -73,7 +122,7 @@ def latest_step(ckpt_dir: "str | Path") -> "int | None":
 
 
 def restore(ckpt_dir: "str | Path", like: Any, step: "int | None" = None,
-            device: "torch.device | str | None" = None) -> Tuple[dict, int]:
+            device: "torch.device | str | None" = None) -> Tuple[Any, int]:
     """Restore checkpoint ``step`` (default: the newest) into the structure
     of ``like``, as tensors on ``device`` (default: each ``like`` leaf's
     device, else the CPU).  Returns ``(tree, step)``."""
@@ -83,8 +132,7 @@ def restore(ckpt_dir: "str | Path", like: Any, step: "int | None" = None,
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {ckpt_dir}")
     with np.load(ckpt_dir / f"step_{step:08d}" / "arrays.npz") as data:
-        flat_like = flatten(like)
-        if {p for p, _ in flat_like} != set(data.files):
+        if {p for p, _ in _flatten(like)} != set(data.files):
             raise ValueError("checkpoint/model structure mismatch")
 
         def leaf(path: str, ref) -> torch.Tensor:
@@ -92,5 +140,5 @@ def restore(ckpt_dir: "str | Path", like: Any, step: "int | None" = None,
                                                             "cpu")
             return torch.from_numpy(data[path]).to(dev)
 
-        tree = map_with_path(leaf, like)
+        tree = _rebuild(like, leaf)
     return tree, step

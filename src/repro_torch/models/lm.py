@@ -1,5 +1,6 @@
 """Config-driven LMs: decoder-only stacks and the whisper-style
-encoder-decoder, for serving (prefill and decode).
+encoder-decoder, for training (``forward_loss``) and serving (prefill and
+decode).
 
 The JAX package's ``models/lm.py``.  Blocks of kind ``attn``, ``swa``
 (sliding window), ``rglru`` and ``ssd``, each with a ``dense``, ``moe``
@@ -15,29 +16,36 @@ Unlike the JAX functions, :func:`prefill`, :func:`decode_step` and
 :func:`encdec_prefill` write the caches in place (one cache per request
 batch saves a copy of it per step) and return the same dicts; a
 recurrent block ``copy_``s its new state into its cache.  Sharding
-constraints (``constrain``) are identities at world size 1 and are left
-out until ``parallel/`` is ported.
+constraints are left out: ``parallel.sharding.constrain`` is the identity
+at world size 1.
 
-Two behaviours of the JAX package's serving path are kept for parity
-(ROADMAP R7, R8): the ``hybrid`` family's ``sqrt(d_model)`` embedding
-scale, which the JAX package applies only in ``forward_loss``, is not
-applied here; whisper's ``enc_pos`` parameter is carried but unread.
+Two behaviours of the JAX package are kept for parity (ROADMAP R7, R8):
+the ``hybrid`` family's ``sqrt(d_model)`` embedding scale is applied in
+``forward_loss`` only, not in serving; whisper's ``enc_pos`` parameter is
+carried but unread.
 
 A sliding-window ring holds token position ``p`` in slot ``p % window``,
 after a prefill as after a decode step (the JAX package's prefill puts a
 long prompt's tail in slots ``0..window-1``, ROADMAP R6).
 
-Not ported yet: ``forward_loss`` (training, ROADMAP queue 1 item 7.3).
+Training: :func:`forward_loss` runs the stack without caches, each
+pattern unit (and each encoder-decoder block) rematerialized in the
+backward under ``remat`` (``torch.utils.checkpoint``, as the JAX package's
+``jax.checkpoint``), the head and its cross-entropy in sequence chunks
+(``chunked_softmax_xent``), and ``grad_bf16`` at the JAX package's points
+(q, k and v after the rotary embedding, each pattern unit's input, the
+loss input, the MoE dispatch buffer).  The forward is unchanged by it.
 
 Entry points:
   build_specs(cfg)                          -> ParamSpec tree
+  forward_loss(params, cfg, batch)          -> (loss, {"xent", "aux"})
   prefill(params, cfg, batch, caches)       -> (last-token logits, caches)
   decode_step(params, cfg, tokens, caches, cur_index) -> (logits, caches)
   encdec_prefill(params, cfg, batch, caches) -> caches (encoder-decoder)
   cache_layout(cfg, batch, seq) / init_cache(cfg, batch, seq, device)
 
-The serving entry points compute in bfloat16, as the JAX package's do;
-their ``dtype=torch.float32`` (with caches from ``init_cache(...,
+The entry points compute in bfloat16, as the JAX package's do; their
+``dtype=torch.float32`` (for serving with caches from ``init_cache(...,
 dtype=torch.float32)``) runs the same code on the float32 master weights.
 """
 from __future__ import annotations
@@ -45,13 +53,16 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import BlockCfg, ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import ssd as ssd_lib
-from repro_torch.models.layers import (embed_lookup, embed_specs, mlp_apply,
+from repro_torch.models.layers import (chunked_softmax_xent, embed_lookup,
+                                       embed_specs, grad_bf16, mlp_apply,
                                        mlp_specs, rms_norm, rotary)
 from repro_torch.models.specs import ParamSpec, stacked, tree_map
 
@@ -137,8 +148,9 @@ def _attn_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, blk: BlockCfg, *,
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
-    q = rotary(q, positions, cfg.rope_theta)
-    k = rotary(k, positions, cfg.rope_theta)
+    q = grad_bf16(rotary(q, positions, cfg.rope_theta))
+    k = grad_bf16(rotary(k, positions, cfg.rope_theta))
+    v = grad_bf16(v)
     if cache is None or s > 1:
         if cache is not None:
             _cache_write_prefill(cache, k, v, blk)
@@ -243,22 +255,38 @@ def _index(tree: dict, r: int) -> dict:
 
 
 def _run_stack(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
-               positions, caches: "dict | None",
-               cur_index=None) -> torch.Tensor:
+               positions, caches: "dict | None", cur_index=None,
+               remat: bool = False):
     """The pattern stack ``repeats`` times, then the tail (``caches=None``:
-    a plain full-sequence pass)."""
-    for r in range(cfg.repeats):
+    a plain full-sequence pass).  Returns (x, the blocks' summed MoE aux
+    loss).  ``remat`` recomputes each pattern unit in the backward instead
+    of keeping its activations."""
+    def unit(x, r: int):
+        x = grad_bf16(x)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i, blk in enumerate(cfg.pattern):
             c = (None if caches is None
                  else _index(caches["pattern"][f"b{i}"], r))
-            x, _ = _apply_block(_index(params["pattern"][f"b{i}"], r), x, cfg,
-                                blk, positions=positions, cache=c,
+            x, a = _apply_block(_index(params["pattern"][f"b{i}"], r), x,
+                                cfg, blk, positions=positions, cache=c,
                                 cur_index=cur_index)
+            aux = aux + a
+        return x, aux
+
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for r in range(cfg.repeats):
+        if remat:
+            x, aux = checkpoint(unit, x, r, use_reentrant=False)
+        else:
+            x, aux = unit(x, r)
+        total = total + aux
     for i, blk in enumerate(cfg.tail):
         c = None if caches is None else caches["tail"][f"t{i}"]
-        x, _ = _apply_block(params["tail"][f"t{i}"], x, cfg, blk,
-                            positions=positions, cache=c, cur_index=cur_index)
-    return x
+        x, aux = _apply_block(params["tail"][f"t{i}"], x, cfg, blk,
+                              positions=positions, cache=c,
+                              cur_index=cur_index)
+        total = total + aux
+    return x, total
 
 
 # --------------------------------------------------------------------------
@@ -272,10 +300,41 @@ def cast_params(params: dict, dtype: torch.dtype = torch.bfloat16) -> dict:
                     params)
 
 
-def forward_loss(params: dict, cfg: ModelConfig, batch: dict, **kw):
-    """Training loss: not ported yet."""
-    raise NotImplementedError(
-        f"training ({cfg.name}) is not ported yet (ROADMAP queue 1 item 7.3)")
+def forward_loss(params: dict, cfg: ModelConfig, batch: dict, *,
+                 remat: bool = True, dtype: torch.dtype = torch.bfloat16):
+    """Training loss and its metrics ``{"xent", "aux"}``: the cross-entropy
+    of the next token plus 0.01 x the MoE load-balancing loss.
+
+    ``batch`` holds ``tokens`` (B, S) (labels: the tokens shifted left,
+    0-padded, unless ``labels`` is given), or ``embeds`` (B, S, D) and
+    ``labels`` for an arch with a modality frontend, or ``frames`` and
+    ``tokens`` for the encoder-decoder.  Positions whose label is 0 are
+    masked out.  As in the JAX package (ROADMAP R7), the ``hybrid``
+    family's inputs are scaled by ``sqrt(d_model)`` here, and only here.
+    ``dtype`` is the compute dtype of the weights' copies."""
+    params = cast_params(params, dtype)
+    if cfg.encdec:
+        return _encdec_loss(params, cfg, batch, remat=remat)
+    if cfg.uses_tokens:
+        tokens = batch["tokens"]
+        x = embed_lookup(params["embed"], tokens)
+        labels = batch.get("labels")
+        if labels is None:
+            labels = F.pad(tokens[:, 1:], (0, 1))
+    else:
+        x = batch["embeds"]
+        labels = batch["labels"]
+    x = x.to(dtype)
+    if cfg.family == "hybrid":
+        x = x * cfg.d_model ** 0.5
+    positions = torch.arange(x.shape[1], device=x.device)
+    x, aux = _run_stack(params, x, cfg, positions=positions, caches=None,
+                        remat=remat)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    mask = (labels > 0).float()
+    table = params["embed"] if cfg.tie_embeddings else params["lm_head"].T
+    loss = chunked_softmax_xent(grad_bf16(x), table, labels, mask)
+    return loss + 0.01 * aux, {"xent": loss, "aux": aux}
 
 
 def _logits(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -298,7 +357,7 @@ def prefill(params: dict, cfg: ModelConfig, batch: dict, caches: dict, *,
         x = batch["embeds"]
     x = x.to(dtype)
     positions = torch.arange(x.shape[1], device=x.device)
-    x = _run_stack(params, x, cfg, positions=positions, caches=caches)
+    x, _ = _run_stack(params, x, cfg, positions=positions, caches=caches)
     return _logits(params, cfg, x[:, -1:]), caches
 
 
@@ -317,8 +376,8 @@ def decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
         x = tokens
     x = x.to(dtype)
     positions = torch.full((1,), int(cur_index), device=x.device)
-    x = _run_stack(params, x, cfg, positions=positions, caches=caches,
-                   cur_index=int(cur_index))
+    x, _ = _run_stack(params, x, cfg, positions=positions, caches=caches,
+                      cur_index=int(cur_index))
     return _logits(params, cfg, x), caches
 
 
@@ -410,17 +469,23 @@ def _encdec_specs(cfg: ModelConfig) -> dict:
     return specs
 
 
-def _encdec_encode(params: dict, cfg: ModelConfig,
-                   frames: torch.Tensor) -> torch.Tensor:
+def _encdec_encode(params: dict, cfg: ModelConfig, frames: torch.Tensor,
+                   remat: bool = False) -> torch.Tensor:
     """frames: (B, S_enc, D) precomputed conv-frontend embeddings (a stub
     frontend) -> encoder output, non-causal self-attention throughout, in
-    the dtype of the compute copies ``params``."""
+    the dtype of the compute copies ``params``; ``remat`` recomputes each
+    block in the backward."""
     x = frames.to(params["embed"].dtype)
     pos = torch.arange(x.shape[1], device=x.device)
+
+    def block(p, x):
+        return _apply_block(p, x, cfg, _ENCDEC_BLOCK, positions=pos,
+                            cache=None, cur_index=None, causal=False)[0]
+
     for i in range(cfg.enc_layers):
-        x, _ = _apply_block(params["encoder"][f"e{i}"], x, cfg, _ENCDEC_BLOCK,
-                            positions=pos, cache=None, cur_index=None,
-                            causal=False)
+        p = params["encoder"][f"e{i}"]
+        x = (checkpoint(block, p, x, use_reentrant=False) if remat
+             else block(p, x))
     return rms_norm(x, params["enc_final_norm"], cfg.norm_eps)
 
 
@@ -438,22 +503,49 @@ def _cross_attend(p: dict, x: torch.Tensor, cfg: ModelConfig,
     return x + torch.einsum("bhsk,hkd->bsd", o, p["cross"]["wo"])
 
 
-def _encdec_forward(params: dict, cfg: ModelConfig, enc_out: torch.Tensor,
-                    tokens: torch.Tensor) -> torch.Tensor:
-    """The decoder over whole token sequences (B, S) against ``enc_out``:
-    logits (B, S, V).  The decoder body of the JAX package's
-    ``_encdec_loss``; ``params`` are the compute copies."""
+def _decode_all(params: dict, cfg: ModelConfig, enc_out: torch.Tensor,
+                tokens: torch.Tensor, remat: bool = False) -> torch.Tensor:
+    """The decoder over whole token sequences (B, S) against ``enc_out``,
+    to the final norm; ``remat`` recomputes each block in the backward."""
     x = embed_lookup(params["embed"], tokens)
     pos = torch.arange(x.shape[1], device=x.device)
-    for i in range(cfg.repeats):
-        p = params["decoder"][f"d{i}"]
+
+    def block(p, x, enc_out):
         x, _ = _apply_block(p, x, cfg, _ENCDEC_BLOCK, positions=pos,
                             cache=None, cur_index=None)
         ek = torch.einsum("bsd,dhk->bhsk", enc_out, p["cross"]["wk"])
         ev = torch.einsum("bsd,dhk->bhsk", enc_out, p["cross"]["wv"])
-        x = _cross_attend(p, x, cfg, ek, ev, decode=False)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return x @ params["embed"].T
+        return _cross_attend(p, x, cfg, ek, ev, decode=False)
+
+    for i in range(cfg.repeats):
+        p = params["decoder"][f"d{i}"]
+        x = (checkpoint(block, p, x, enc_out, use_reentrant=False) if remat
+             else block(p, x, enc_out))
+    return rms_norm(x, params["final_norm"], cfg.norm_eps)
+
+
+def _encdec_forward(params: dict, cfg: ModelConfig, enc_out: torch.Tensor,
+                    tokens: torch.Tensor) -> torch.Tensor:
+    """The decoder's logits (B, S, V) over whole token sequences against
+    ``enc_out``; ``params`` are the compute copies."""
+    return _decode_all(params, cfg, enc_out, tokens) @ params["embed"].T
+
+
+def _encdec_loss(params: dict, cfg: ModelConfig, batch: dict, *,
+                 remat: bool = True):
+    """The encoder-decoder's training loss over ``batch["frames"]`` and
+    ``batch["tokens"]``: the next token's cross-entropy in chunks of
+    ``min(448, S)`` (no MoE, so ``aux`` is 0)."""
+    enc_out = _encdec_encode(params, cfg, batch["frames"], remat=remat)
+    tokens = batch["tokens"]
+    x = _decode_all(params, cfg, enc_out, tokens, remat=remat)
+    labels = F.pad(tokens[:, 1:], (0, 1))
+    mask = (labels > 0).float()
+    loss = chunked_softmax_xent(x, params["embed"], labels, mask,
+                                chunk=min(448, x.shape[1]))
+    return loss, {"xent": loss,
+                  "aux": torch.zeros((), dtype=torch.float32,
+                                     device=x.device)}
 
 
 def _encdec_cache_layout(cfg: ModelConfig, batch: int, seq: int,

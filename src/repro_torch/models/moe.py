@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models.layers import grad_bf16
 from repro_torch.models.specs import ParamSpec
 
 __all__ = ["MAX_DISPATCH_TOKENS", "moe_specs", "moe_apply", "route"]
@@ -93,7 +94,7 @@ def _moe_tokens(p: dict, xt: torch.Tensor, *, top_k: int,
     slot_src[dest] = torch.arange(n * top_k, device=xt.device) // top_k
     slot_fill = torch.zeros(e * cap + 1, dtype=xt.dtype, device=xt.device)
     slot_fill[dest] = 1
-    buf = xt[slot_src[:e * cap]] * slot_fill[:e * cap, None]
+    buf = grad_bf16(xt[slot_src[:e * cap]] * slot_fill[:e * cap, None])
     buf = buf.reshape(e, cap, d)
 
     h = F.silu(torch.bmm(buf, p["w_gate"])) * torch.bmm(buf, p["w_up"])

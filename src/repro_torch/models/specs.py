@@ -5,9 +5,10 @@ port materializes parameters (:func:`init_tree`) and counts them.  The
 trees are plain nested dicts of tensors, keyed as the JAX package's
 parameter pytrees are, so :func:`params_from_jax` carries the JAX
 package's parameters (as numpy arrays) across leaf for leaf and
-:func:`params_to_numpy` carries them back.  The sharding trees
-(``shardings_tree``, ``partition_specs_tree``) belong to training and wait
-for the port of ``parallel/``.
+:func:`params_to_numpy` carries them back.  :func:`partition_specs_tree`
+resolves every parameter's logical axes on a mesh descriptor; the JAX
+package's ``shardings_tree`` (``NamedSharding`` objects) has no torch
+counterpart.
 
 Initial values come from one ``torch.Generator`` per leaf, seeded from
 ``(seed, leaf index)`` in sorted-key order: they match the JAX package's
@@ -22,9 +23,9 @@ from typing import Any, Callable, Dict, Iterator, List, Tuple
 import numpy as np
 import torch
 
-__all__ = ["ParamSpec", "init_param", "init_tree", "stacked", "count_params",
-           "flatten", "map_with_path", "tree_map", "params_from_jax",
-           "params_to_numpy"]
+__all__ = ["ParamSpec", "init_param", "init_tree", "keyed_generator",
+           "stacked", "count_params", "flatten", "map_with_path", "tree_map",
+           "params_from_jax", "params_to_numpy", "partition_specs_tree"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,8 +86,10 @@ def tree_map(fn: Callable, tree, *rest, is_leaf=None):
             for k, v in tree.items()}
 
 
-def _leaf_generator(seed: int, index: int, device: torch.device) -> torch.Generator:
-    """An independent stream per leaf: splitmix64 of (seed, leaf index)."""
+def keyed_generator(seed: int, index: int,
+                    device: "torch.device | str") -> torch.Generator:
+    """An independent stream per ``(seed, index)`` (a parameter leaf, a
+    data step): a generator seeded with splitmix64 of the pair."""
     z = (int(seed) * 0x9E3779B97F4A7C15 + int(index) + 1) & (2 ** 64 - 1)
     z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & (2 ** 64 - 1)
     z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & (2 ** 64 - 1)
@@ -120,13 +123,24 @@ def init_tree(seed: int, specs, device: "torch.device | str") -> dict:
     device = torch.device(device)
     index = {path: i for i, (path, _) in enumerate(flatten(specs, _is_spec))}
     return map_with_path(
-        lambda path, spec: init_param(_leaf_generator(seed, index[path],
+        lambda path, spec: init_param(keyed_generator(seed, index[path],
                                                       device), spec, device),
         specs, _is_spec)
 
 
 def count_params(specs) -> int:
     return int(sum(np.prod(s.shape) for _, s in flatten(specs, _is_spec)))
+
+
+def partition_specs_tree(specs, mesh, rules=None) -> dict:
+    """Each parameter's per-dimension mesh-axis assignment on ``mesh`` (a
+    :class:`~repro_torch.launch.mesh.Mesh`), as the JAX package's
+    ``PartitionSpec`` holds it (``parallel.sharding.resolve_spec``)."""
+    # imported here: parallel/ imports this module's tree helpers
+    from repro_torch.parallel.sharding import resolve_spec
+
+    return tree_map(lambda s: resolve_spec(s.shape, s.axes, mesh, rules),
+                    specs, is_leaf=_is_spec)
 
 
 def stacked(spec: ParamSpec, n: int) -> ParamSpec:

@@ -181,13 +181,13 @@ def _steps(params, cfg, device, inputs, tokens) -> list:
             out.append(logits)
         return out
     s = inputs.shape[1]
-    x = lm._run_stack(params, inputs, cfg, positions=torch.arange(
+    x, _ = lm._run_stack(params, inputs, cfg, positions=torch.arange(
         s, device=device), caches=caches)
     out.append(lm._logits(params, cfg, x[:, -1:]))
     for i in range(tokens.shape[1]):
-        x = lm._run_stack(params, params["embed"][tokens[:, i:i + 1]], cfg,
-                          positions=torch.tensor([s + i], device=device),
-                          caches=caches, cur_index=s + i)
+        x, _ = lm._run_stack(params, params["embed"][tokens[:, i:i + 1]],
+                             cfg, positions=torch.tensor([s + i], device=device),
+                             caches=caches, cur_index=s + i)
         out.append(lm._logits(params, cfg, x))
     return out
 

@@ -34,7 +34,6 @@ from pathlib import Path
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 from repro import configs as ref_configs
@@ -251,16 +250,16 @@ def _internvl_f32(cfg, ref_cfg, params, ref_params, embeds, tokens) -> list:
     caches = tree_map(lambda t: t.float(), lm.init_cache(cfg, 2, 64, "cpu"))
     ref_caches = jax.tree.map(lambda a: a.astype(jnp.float32),
                               ref_lm.init_cache(ref_cfg, 2, 64))
-    x = lm._run_stack(params, torch.tensor(embeds), cfg,
-                      positions=torch.arange(48), caches=caches)
+    x, _ = lm._run_stack(params, torch.tensor(embeds), cfg,
+                         positions=torch.arange(48), caches=caches)
     ref_logits, ref_caches = ref_prefill(ref_params, embeds, ref_caches)
     assert _err(lm._logits(params, cfg, x[:, -1:]), ref_logits) <= F32_TOL
     exact = [ref_logits]
     for i in range(tokens.shape[1]):
         row = table[tokens[:, i:i + 1]]
-        x = lm._run_stack(params, torch.tensor(row), cfg,
-                          positions=torch.tensor([48 + i]), caches=caches,
-                          cur_index=48 + i)
+        x, _ = lm._run_stack(params, torch.tensor(row), cfg,
+                             positions=torch.tensor([48 + i]),
+                             caches=caches, cur_index=48 + i)
         ref_logits, ref_caches = ref_decode(ref_params, row, ref_caches,
                                             jnp.asarray(48 + i, jnp.int32))
         assert _err(lm._logits(params, cfg, x), ref_logits) <= F32_TOL, i
@@ -316,7 +315,8 @@ def test_every_registry_config_prefills_and_decodes():
     """All ten configs at reduced size (windows cut to 32, every block
     kind, MLP and frontend): ``build_specs``, ``init_cache``, ``prefill``
     (or ``encdec_prefill``) and three ``decode_step``s give finite logits
-    of shape (B, 1, V); training raises, naming its ROADMAP item."""
+    of shape (B, 1, V); ``forward_loss`` on the same inputs (frames and
+    tokens, embeds and labels, or tokens) gives a finite loss."""
     assert len(configs.REGISTRY) == 10
     g = torch.Generator().manual_seed(3)
     for name, full in configs.REGISTRY.items():
@@ -333,9 +333,10 @@ def test_every_registry_config_prefills_and_decodes():
             top_k=min(full.top_k, 2) if full.top_k else 0)
         params = init_tree(0, lm.build_specs(cfg), "cpu")
         if cfg.encdec:
-            caches = lm.encdec_prefill(
-                params, cfg, {"frames": torch.randn(2, 64, 64, generator=g)},
-                lm.init_cache(cfg, 2, 64, "cpu"))
+            batch = {"frames": torch.randn(2, 64, 64, generator=g),
+                     "tokens": torch.randint(1, 512, (2, 16), generator=g)}
+            caches = lm.encdec_prefill(params, cfg, batch,
+                                       lm.init_cache(cfg, 2, 64, "cpu"))
             start = 0
         else:
             batch = ({"tokens": torch.randint(1, 512, (2, 64), generator=g)}
@@ -351,8 +352,12 @@ def test_every_registry_config_prefills_and_decodes():
                 start + i)
             assert logits.shape == (2, 1, 512), name
             assert bool(torch.isfinite(logits.float()).all()), name
-        with pytest.raises(NotImplementedError, match="item 7.3"):
-            lm.forward_loss(params, cfg, {})
+        if not cfg.uses_tokens:
+            batch = dict(batch, labels=torch.randint(1, 512, (2, 64),
+                                                     generator=g))
+        loss, metrics = lm.forward_loss(params, cfg, batch)
+        assert bool(torch.isfinite(loss)), name
+        assert set(metrics) == {"xent", "aux"}, name
 
 
 def test_serve_example_runs_the_new_stacks(monkeypatch, capsys):

@@ -135,10 +135,14 @@ def test_layers_and_attention_match_jax_on_f32():
                                      cur_index=jnp.asarray(3),
                                      entry_positions=jnp.asarray(
                                          np.where(part < 0, 99, part))))
-    for arch in ("mixtral-8x7b", "mamba2-130m", "whisper-tiny",
-                 "internvl2-26b"):       # training is not ported yet
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            lm.forward_loss({}, configs.get_config(arch), {})
+    # training's head: the chunked cross-entropy at a chunk below S
+    xs, head = r(2, 8, 16), r(40, 16)
+    labels = rng.integers(0, 40, (2, 8))
+    mask = (labels > 0).astype(np.float32)
+    _close(layers.chunked_softmax_xent(torch.tensor(xs), torch.tensor(head),
+                                       torch.tensor(labels),
+                                       torch.tensor(mask), chunk=4),
+           ref_layers.chunked_softmax_xent(xs, head, labels, mask, chunk=4))
 
 
 @pytest.mark.parametrize("arch,prompt,max_seq", [("qwen3-1.7b", 16, 32),

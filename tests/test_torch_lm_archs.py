@@ -127,9 +127,9 @@ def _f32_steps(cfg, ref_cfg, params, ref_params, tokens):
         else:
             ref_logits, ref_caches = ref_decode(ref_params, x, ref_caches,
                                                 jnp.asarray(lo, jnp.int32))
-        h = lm._run_stack(params, torch.tensor(x), cfg,
-                          positions=torch.arange(lo, hi), caches=caches,
-                          cur_index=None if i == 0 else lo)
+        h, _ = lm._run_stack(params, torch.tensor(x), cfg,
+                             positions=torch.arange(lo, hi), caches=caches,
+                             cur_index=None if i == 0 else lo)
         out.append((lm._logits(params, cfg, h[:, -1:]), ref_logits))
         ref = dict(flatten(jax.tree.map(np.asarray, ref_caches)))
         for path, leaf in flatten(caches):
@@ -311,9 +311,11 @@ def test_long_prompt_ring_slots_and_next_decode(monkeypatch):
     caches = tree_map(lambda t: t.float(), lm.init_cache(cfg, 1, 4096, "cpu"))
     lm._run_stack(params, x[:, :s], cfg, positions=torch.arange(s),
                   caches=caches)
-    step = lm._run_stack(params, x[:, s:], cfg, positions=torch.tensor([s]),
-                         caches=caches, cur_index=s)
-    full = lm._run_stack(params, torch.nn.functional.pad(x, (0, 0, 0, 511)),
-                         cfg, positions=torch.arange(3072), caches=None)
+    step, _ = lm._run_stack(params, x[:, s:], cfg,
+                            positions=torch.tensor([s]), caches=caches,
+                            cur_index=s)
+    full, _ = lm._run_stack(params,
+                            torch.nn.functional.pad(x, (0, 0, 0, 511)), cfg,
+                            positions=torch.arange(3072), caches=None)
     assert _err(lm._logits(params, cfg, step),
                 lm._logits(params, cfg, full[:, s:s + 1])) <= F32_TOL

@@ -89,9 +89,10 @@ def test_mamba2_published_width_matches_jax():
             else:
                 want, ref_caches = ref_decode(ref_params, x, ref_caches,
                                               jnp.asarray(lo, jnp.int32))
-            h = lm._run_stack(params, torch.tensor(x), cfg,
-                              positions=torch.arange(lo, hi), caches=caches,
-                              cur_index=None if i == 0 else lo)
+            h, _ = lm._run_stack(params, torch.tensor(x), cfg,
+                                 positions=torch.arange(lo, hi),
+                                 caches=caches,
+                                 cur_index=None if i == 0 else lo)
             got = lm._logits(params, cfg, h[:, -1:])
             assert _err(got, want) <= F32_TOL, i
             full, _ = lm.prefill(params, cfg,
