@@ -123,9 +123,28 @@
    version.  Then one full-width pattern unit (5 ``swa`` layers and 1
    ``attn``) in float32 on 1 x 512 tokens: the loss within 1e-5 and every
    gradient within 1e-3 of the CPU's; and mamba2-130m trained 4 steps of
-   4 x 256 tokens at its published widths, its losses finite.
-11. Prints the ``kernels`` JSON line (launches summed over the eight
-   paths), then a last line ``{"ok": true, "device": {...}}``.
+   4 x 256 tokens at its published widths, its losses finite.  The step
+   also runs once under ``FlopCounterMode`` for the cost phase.
+11. Pipeline phase: ``parallel.pipeline.pipeline_apply`` over gemma3-1b's
+   four stacked pattern units (6 layers each, full width, seed 0) as four
+   stages, each on a stream of its own on the card, over 16 x 512 tokens
+   of bfloat16 hidden state at 4 and 16 microbatches: each microbatch's
+   output equal bit for bit to the sequential pass over it, the whole
+   within 2e-2 of one full-batch sequential pass; in float32, one unit
+   per stage on 1 x 512 tokens, the gradients of every stacked leaf and
+   of the input within 1e-5 of the sequential pass's.  Prints the times
+   (CUDA events), the kernels' overlap across the stage streams
+   (``torch.profiler``) and GPipe's bubble formula.
+12. Cost phase: ``launch.dryrun.run_cell`` for gemma3-1b's ``train_4k``
+   cell on the 16 x 16 and 2 x 16 x 16 production meshes (meta tensors,
+   no card memory); the training phase's step counted on meta tensors
+   (``launch.cost_analysis``), its product FLOPs equal to
+   ``FlopCounterMode``'s on the real step on the card; prints them beside
+   ``train_flops`` and the JAX package's 6·N·D, and the step's measured
+   time against the roofline's lower bound.
+13. Prints the ``kernels`` JSON line (launches summed over the eight
+   paths; the pipeline and cost phases launch none of the five kernels),
+   then a last line ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero before the last line.  Without a
 card, or without the rest of the repository beside it, it exits non-zero.
@@ -145,6 +164,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch.utils.flop_counter import FlopCounterMode
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -257,6 +277,20 @@ TRAIN_LAUNCHES = {"mlc_sense": 1, "sense_reduce": 0,
                   "popcount_rows": 1}
 #: the H100's dense bfloat16 peak (NVIDIA's data sheet, SXM, at 700 W)
 BF16_PEAK_FLOPS = 989e12
+#: the pipeline phase: gemma3-1b's four stacked pattern units (6 layers
+#: each) as four stages on four streams of the card, 16 sequences x 512
+#: tokens of bfloat16 hidden state, at these microbatch counts
+PIPE_ARCH, PIPE_SEED = "gemma3-1b", 0
+PIPE_BATCH, PIPE_SEQ, PIPE_MICROBATCHES = 16, 512, (4, 16)
+#: the pipeline's output against one full-batch sequential pass (bfloat16,
+#: of the output's scale; each microbatch is gated bit for bit against the
+#: sequential pass over that microbatch)
+PIPE_TOL = 2e-2
+#: float32 gradients through the pipeline (one unit per stage, 1 x 512
+#: tokens) against the sequential pass's, of each leaf's scale
+PIPE_GRAD_TOL = 1e-5
+#: the cost phase: gemma3-1b's dry-run cell on both production meshes
+COST_CELL = ("gemma3-1b", "train_4k")
 
 KERNELS = {
     "mlc_sense": ("src/repro_torch/csrc/mlc_sense.cu",
@@ -2402,6 +2436,9 @@ def train_phase(errs: dict, gpu: str, device: str = "cuda", cfg=None,
 
     step_ms = time_ms(step, 3, warmup=1) if on_card else None
     prof = step_profile(step, "train step") if on_card else {}
+    with FlopCounterMode(display=False) as flop_mode:   # the cost phase's
+        step()                                          # cross-check
+    counted_flops = flop_mode.get_total_flops()
     step_dev_ms = prof.get("device_ms")
     step_peak = (torch.cuda.max_memory_allocated() / 2 ** 30 if on_card
                  else None)
@@ -2447,7 +2484,7 @@ def train_phase(errs: dict, gpu: str, device: str = "cuda", cfg=None,
            "busy_share": (None if step_dev_ms is None or step_ms is None
                           else step_dev_ms / step_ms),
            "tokens_per_s": (tokens / step_ms * 1e3 if step_ms else None),
-           "model_flops": flops,
+           "model_flops": flops, "flop_counter_mode_flops": counted_flops,
            "flops_share": (flops / (step_ms * 1e-3) / BF16_PEAK_FLOPS
                            if step_ms else None),
            "peak_allocated_gib": peak, "step_peak_allocated_gib": step_peak,
@@ -2498,6 +2535,192 @@ def train_phase(errs: dict, gpu: str, device: str = "cuda", cfg=None,
           f"{ssm['flops_share']} of the bf16 peak, peak allocated "
           f"{ssm['peak_allocated_gib']} GiB; phase {res['seconds']:.2f} s",
           flush=True)
+    return res
+
+
+def pipeline_phase(errs: dict, gpu: str, device: str = "cuda", cfg=None,
+                   batch: int = PIPE_BATCH, seq: int = PIPE_SEQ,
+                   microbatches=PIPE_MICROBATCHES) -> dict:
+    """``parallel.pipeline.pipeline_apply`` over gemma3-1b's stacked
+    pattern units at full width, one unit per stage, the stages on their
+    own streams of one card: each microbatch's output equal bit for bit to
+    the sequential pass over that microbatch (the same kernels on the same
+    shapes), the whole within ``PIPE_TOL`` of one full-batch sequential
+    pass; the float32 gradients through the pipeline (one unit per stage,
+    1 x ``seq`` tokens) within ``PIPE_GRAD_TOL`` of the sequential pass's.
+    Times the pipeline at each microbatch count and the sequential pass
+    (CUDA events), and measures the kernels' overlap across the stage
+    streams (``torch.profiler``) beside GPipe's bubble formula."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import cuda
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import lm
+    from repro_torch.models.specs import flatten, init_tree, tree_map
+    from repro_torch.parallel.pipeline import bubble_fraction, pipeline_apply
+
+    on_card = device == "cuda"
+    cfg = cfg or get_config(PIPE_ARCH)
+    t0 = time.perf_counter()
+    cuda.reset_launches()
+    n_stages = cfg.repeats
+    mesh = Mesh(("pod",), (n_stages,))
+    devices = [device] * n_stages
+    masters = init_tree(PIPE_SEED, lm.build_specs(cfg)["pattern"], device)
+    gen = torch.Generator().manual_seed(PIPE_SEED)
+
+    def stage(p, x):
+        return lm.apply_unit(p, x, cfg)[0]
+
+    def unit(tree, r):
+        return {k: unit(v, r) if isinstance(v, dict) else v[r]
+                for k, v in tree.items()}
+
+    def sequential(params, x):
+        for r in range(n_stages):
+            x = stage(unit(params, r), x)
+        return x
+
+    params = lm.cast_params(masters)
+    x = torch.randn(batch, seq, cfg.d_model, generator=gen) \
+        .to(torch.bfloat16).to(device)
+    runs = {}
+    with torch.no_grad():
+        full = sequential(params, x)
+        scale = float(full.float().abs().max())
+        for m in microbatches:
+            got = pipeline_apply(stage, params, x, mesh=mesh,
+                                 microbatches=m, devices=devices)
+            per_mb = [sequential(params, xm) for xm in x.split(batch // m)]
+            exact = all(torch.equal(a, b) for a, b in
+                        zip(got.split(batch // m), per_mb))
+            gap = float((got.float() - full.float()).abs().max()) / scale
+            if not exact:
+                fail(f"pipeline: M={m} differs from the sequential pass per "
+                     "microbatch")
+            if not gap <= PIPE_TOL:
+                fail(f"pipeline: M={m} lies {gap:.3g} of the scale from the "
+                     "full-batch pass")
+            runs[m] = {"bit_exact_per_microbatch": exact,
+                       "gap_to_full_batch": gap,
+                       "bubble": bubble_fraction(n_stages, m)}
+        if on_card:
+            seq_ms = time_ms(lambda: sequential(params, x), 3, warmup=1)
+            for m in microbatches:
+                def piped(m=m):
+                    pipeline_apply(stage, params, x, mesh=mesh,
+                                   microbatches=m, devices=devices)
+                runs[m]["ms"] = time_ms(piped, 3, warmup=1)
+                runs[m]["overlap"] = kernel_overlap(piped, f"pipeline M={m}")
+        else:
+            seq_ms = None
+    del full
+
+    # float32 gradients: one unit per stage, one sequence
+    xg = torch.randn(1, seq, cfg.d_model, generator=gen).to(device)
+    cot = torch.randn(1, seq, cfg.d_model, generator=gen).to(device)
+
+    def grads(run):
+        tree = tree_map(lambda t: t.detach().clone().requires_grad_(),
+                        masters)
+        xi = xg.clone().requires_grad_()
+        (run(tree, xi) * cot).sum().backward()
+        return [("x", xi.grad)] + [(k, t.grad) for k, t in flatten(tree)]
+
+    want = grads(sequential)
+    got = grads(lambda p, xi: pipeline_apply(stage, p, xi, mesh=mesh,
+                                             microbatches=1, devices=devices))
+    worst, worst_leaf = 0.0, None
+    for (path, a), (_, b) in zip(got, want):
+        err = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+        if err > worst:
+            worst, worst_leaf = err, path
+    if not worst <= PIPE_GRAD_TOL:
+        fail(f"pipeline: float32 gradient of {worst_leaf} lies {worst:.3g} "
+             "of its scale from the sequential pass's")
+    del masters, params, x, got, want
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    launches = dict(cuda.launches)
+    res = {"arch": cfg.name, "stages": n_stages,
+           "layers_per_stage": len(cfg.pattern), "batch": batch, "seq": seq,
+           "sequential_ms": seq_ms, "runs": runs,
+           "grad_worst_rel_err": worst, "grad_worst_leaf": worst_leaf,
+           "launches": launches, "seconds": time.perf_counter() - t0}
+    print(f"pipeline ({gpu}): {cfg.name}, {n_stages} stages of "
+          f"{len(cfg.pattern)} layers on {n_stages} streams, {batch} x {seq} "
+          f"bfloat16 tokens: sequential {seq_ms} ms; " + "; ".join(
+              f"M={m}: {r.get('ms')} ms, bubble {r['bubble']:.4f}, kernel "
+              f"overlap {json.dumps(r.get('overlap'))}, bit-exact per "
+              f"microbatch, {r['gap_to_full_batch']:.3g} of the scale from "
+              f"the full batch" for m, r in runs.items())
+          + f"; float32 gradients within {worst:.3g} ({worst_leaf}); "
+          f"{res['seconds']:.2f} s", flush=True)
+    return res
+
+
+def cost_phase(gpu: str, train: dict, device: str = "cuda", cfg=None,
+               batch: int = TRAIN_BATCH, seq: int = TRAIN_SEQ,
+               cells: bool = True) -> dict:
+    """The dry run's counter (``launch.cost_analysis``): ``dryrun.run_cell``
+    for ``COST_CELL`` on both production meshes, on the meta device; then
+    the training phase's step (gemma3-1b, ``batch`` x ``seq``) counted on
+    meta tensors, its product FLOPs equal to ``FlopCounterMode``'s on the
+    real step on the card (``train["flop_counter_mode_flops"]``), beside
+    ``train_flops``, the JAX package's 6·N·D and the step's measured ms
+    against the roofline's lower bound."""
+    from repro_torch.configs import ShapeCfg, get_config
+    from repro_torch.launch import cost_analysis, dryrun
+    from repro_torch.models import lm
+    from repro_torch.models.specs import abstract_tree
+    from repro_torch.optim import AdamWConfig, adamw
+    from repro_torch.train.step import make_train_step
+
+    t0 = time.perf_counter()
+    cfg = cfg or get_config(TRAIN_ARCH)
+    records = {}
+    if cells:
+        for multi in (False, True):
+            rec = dryrun.run_cell(*COST_CELL, multi, verbose=False)
+            records[rec["mesh"]] = rec
+    params = abstract_tree(lm.build_specs(cfg))
+    tokens = torch.empty(batch, seq, dtype=torch.int32, device="meta")
+    _, cost = cost_analysis.count_cost(
+        make_train_step(cfg, AdamWConfig()), params,
+        adamw.abstract_state(params), {"tokens": tokens})
+    roof = cost_analysis.roofline(cost)
+    if cost.product_flops != train["flop_counter_mode_flops"]:
+        fail(f"cost: the counter's product FLOPs {cost.product_flops} on "
+             f"meta tensors differ from FlopCounterMode's "
+             f"{train['flop_counter_mode_flops']} on the real step")
+    step_ms = train["step_ms"]
+    bound_ms = roof.step_time_s * 1e3
+    res = {"cells": records, "step_product_flops": cost.product_flops,
+           "step_flops": cost.flops, "step_bytes": cost.bytes,
+           "step_peak_live_bytes": cost.peak_live_bytes,
+           "step_aten_ops": cost.ops, "roofline": roof.to_dict(),
+           "flop_counter_mode_flops": train["flop_counter_mode_flops"],
+           "train_flops": train["model_flops"],
+           "model_flops_6nd": dryrun.model_flops(
+               cfg, ShapeCfg("chip_smoke", seq, batch, "train")),
+           "step_ms": step_ms, "bound_ms": bound_ms,
+           "step_over_bound": step_ms / bound_ms if step_ms else None,
+           "seconds": time.perf_counter() - t0}
+    print(f"cost ({gpu}): " + "; ".join(
+        f"{name}: peak/dev (temps split evenly) "
+        f"{r['peak_bytes_per_device_temps_split_evenly'] / 2 ** 30:.3f} GiB, "
+        f"temps {r['memory']['temp_bytes_global'] / 2 ** 30:.1f} GiB global, "
+        f"{r['flops_global']:.4g} FLOPs and {r['bytes_global']:.4g} bytes "
+        f"global, {r['microbatches']} microbatches, fits 80 GiB "
+        f"{r['fits_80GiB']}" for name, r in records.items())
+        + f"; the training step ({cfg.name}, {batch} x {seq}): product FLOPs "
+        f"{cost.product_flops:.6g} on meta = FlopCounterMode's on the card; "
+        f"all FLOPs {cost.flops:.6g}, bytes {cost.bytes:.6g} in "
+        f"{cost.ops} aten ops, live peak {cost.peak_live_bytes / 2 ** 30:.2f}"
+        f" GiB; train_flops {train['model_flops']:.6g}, 6ND "
+        f"{res['model_flops_6nd']:.6g}; step {step_ms} ms against the "
+        f"roofline's {bound_ms:.3f} ms ({roof.bottleneck}-bound): "
+        f"{res['step_over_bound']}x; {res['seconds']:.2f} s", flush=True)
     return res
 
 
@@ -2601,6 +2824,10 @@ def main() -> int:
     train = train_phase(errs, gpu)
     require_launches(train["launches"], [k for k, n in TRAIN_LAUNCHES.items()
                                          if n], "train")
+    gc.collect()
+    torch.cuda.empty_cache()
+    pipe = pipeline_phase(errs, gpu)
+    cost = cost_phase(gpu, train)
     per_path = {"main": launches, "serving": serve["launches"],
                 "recovery": recovery["launches"],
                 "endurance": endurance["launches"],
@@ -2621,7 +2848,7 @@ def main() -> int:
     record.update(main_path=run, launches=per_path, kernels=kernels,
                   timing=timing, serving=serve, recovery=recovery,
                   endurance=endurance, applications=apps, placed=placed,
-                  lm=lm_run, train=train)
+                  lm=lm_run, train=train, pipeline=pipe, cost=cost)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))

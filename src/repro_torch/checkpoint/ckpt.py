@@ -12,7 +12,12 @@ either package restores what the other wrote:
   ``.name``;
 - atomic: written to ``<dir>/tmp.<step>`` and then renamed, so a preempted
   job never sees a torn checkpoint;
-- retention: the newest ``keep`` checkpoints stay.
+- retention: the newest ``keep`` checkpoints stay;
+- a bfloat16 leaf is stored as the JAX package's ``np.asarray`` stores it:
+  two-byte void records (``|V2``) holding the bfloat16 bits, so the npz
+  entry (key, dtype, bytes) is the JAX package's.  ``restore`` reads such
+  an entry back as bfloat16 wherever the matching leaf of ``like`` is
+  bfloat16; the JAX package's own ``restore`` cannot read it.
 """
 from __future__ import annotations
 
@@ -83,10 +88,28 @@ def _treedef(tree) -> str:
     return f"PyTreeDef({walk(tree)})"
 
 
+#: numpy's name for the records a bfloat16 leaf is stored as
+BF16_RECORD = np.dtype("V2")
+
+
 def _host(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
+        leaf = leaf.detach().cpu()
+        if leaf.dtype == torch.bfloat16:
+            return leaf.view(torch.int16).numpy().view(BF16_RECORD)
+        return leaf.numpy()
     return np.asarray(leaf)
+
+
+def _tensor(a: np.ndarray, like_dtype) -> torch.Tensor:
+    """An npz entry as a tensor: ``|V2`` records as bfloat16 where the
+    matching leaf of ``like`` is bfloat16."""
+    if a.dtype == BF16_RECORD:
+        if like_dtype != torch.bfloat16:
+            raise TypeError(f"a bfloat16 entry restores only into a bfloat16 "
+                            f"leaf, not {like_dtype}")
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
 
 
 def save(ckpt_dir: "str | Path", step: int, tree: Any, keep: int = 3) -> Path:
@@ -138,7 +161,7 @@ def restore(ckpt_dir: "str | Path", like: Any, step: "int | None" = None,
         def leaf(path: str, ref) -> torch.Tensor:
             dev = device if device is not None else getattr(ref, "device",
                                                             "cpu")
-            return torch.from_numpy(data[path]).to(dev)
+            return _tensor(data[path], getattr(ref, "dtype", None)).to(dev)
 
         tree = _rebuild(like, leaf)
     return tree, step

@@ -67,7 +67,8 @@ from repro_torch.models.layers import (chunked_softmax_xent, embed_lookup,
 from repro_torch.models.specs import ParamSpec, stacked, tree_map
 
 __all__ = ["build_specs", "cast_params", "forward_loss", "prefill",
-           "decode_step", "encdec_prefill", "cache_layout", "init_cache"]
+           "decode_step", "encdec_prefill", "cache_layout", "init_cache",
+           "abstract_cache", "apply_unit"]
 
 
 # --------------------------------------------------------------------------
@@ -186,7 +187,7 @@ def _cache_write_prefill(cache: dict, k: torch.Tensor, v: torch.Tensor,
 
 
 def _cache_write_decode(cache: dict, k: torch.Tensor, v: torch.Tensor,
-                        blk: BlockCfg, cur_index: int) -> "torch.Tensor | None":
+                        blk: BlockCfg, cur_index) -> "torch.Tensor | None":
     """One token's K/V into its slot; returns each slot's token position
     for a sliding-window ring (None: slot == position)."""
     kc, vc = cache["k"], cache["v"]
@@ -198,8 +199,12 @@ def _cache_write_decode(cache: dict, k: torch.Tensor, v: torch.Tensor,
         # ring-buffer slot positions: p_j = cur - ((cur - j) mod window)
         j = torch.arange(window, device=kc.device)
         entry_pos = cur_index - torch.remainder(cur_index - j, window)
-    kc[:, :, slot] = k[:, :, 0].to(kc.dtype)
-    vc[:, :, slot] = v[:, :, 0].to(vc.dtype)
+    if isinstance(slot, torch.Tensor):      # a position never read on the host
+        kc.index_copy_(2, slot.reshape(1), k.to(kc.dtype))
+        vc.index_copy_(2, slot.reshape(1), v.to(vc.dtype))
+    else:
+        kc[:, :, slot] = k[:, :, 0].to(kc.dtype)
+        vc[:, :, slot] = v[:, :, 0].to(vc.dtype)
     return entry_pos
 
 
@@ -254,6 +259,25 @@ def _index(tree: dict, r: int) -> dict:
             for k, v in tree.items()}
 
 
+def apply_unit(unit_params: dict, x: torch.Tensor, cfg: ModelConfig, *,
+               positions=None, caches: "dict | None" = None,
+               cur_index=None):
+    """One pattern unit, the blocks of ``cfg.pattern`` in order, with the
+    parameters (and caches) of one repeat (``{"b0": ..., "b1": ...}``);
+    ``positions`` default to ``0..S-1``.  Returns (x, the summed MoE aux
+    loss).  A pipeline stage (``parallel.pipeline``) is one such unit."""
+    if positions is None:
+        positions = torch.arange(x.shape[1], device=x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i, blk in enumerate(cfg.pattern):
+        x, a = _apply_block(unit_params[f"b{i}"], x, cfg, blk,
+                            positions=positions,
+                            cache=None if caches is None
+                            else caches[f"b{i}"], cur_index=cur_index)
+        aux = aux + a
+    return x, aux
+
+
 def _run_stack(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
                positions, caches: "dict | None", cur_index=None,
                remat: bool = False):
@@ -262,16 +286,11 @@ def _run_stack(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
     loss).  ``remat`` recomputes each pattern unit in the backward instead
     of keeping its activations."""
     def unit(x, r: int):
-        x = grad_bf16(x)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for i, blk in enumerate(cfg.pattern):
-            c = (None if caches is None
-                 else _index(caches["pattern"][f"b{i}"], r))
-            x, a = _apply_block(_index(params["pattern"][f"b{i}"], r), x,
-                                cfg, blk, positions=positions, cache=c,
-                                cur_index=cur_index)
-            aux = aux + a
-        return x, aux
+        return apply_unit(_index(params["pattern"], r), grad_bf16(x), cfg,
+                          positions=positions,
+                          caches=(None if caches is None
+                                  else _index(caches["pattern"], r)),
+                          cur_index=cur_index)
 
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     for r in range(cfg.repeats):
@@ -362,23 +381,41 @@ def prefill(params: dict, cfg: ModelConfig, batch: dict, caches: dict, *,
 
 
 def decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
-                caches: dict, cur_index: int, *,
+                caches: dict, cur_index, *,
                 dtype: torch.dtype = torch.bfloat16):
-    """One serving step at position ``cur_index``: token ids (B, 1), or
+    """One serving step at position ``cur_index`` (an int or a 0-d
+    tensor): token ids (B, 1), or
     embeds (B, 1, D) -> logits (B, 1, V), the caches updated in place.
     Archs with a modality frontend decode text tokens as ids."""
     params = cast_params(params, dtype)
+    cur_index = _index_arg(cur_index)
     if cfg.encdec:
-        return _encdec_decode_step(params, cfg, tokens, caches, int(cur_index))
+        return _encdec_decode_step(params, cfg, tokens, caches, cur_index)
     if tokens.ndim == 2:
         x = embed_lookup(params["embed"], tokens)
     else:
         x = tokens
     x = x.to(dtype)
-    positions = torch.full((1,), int(cur_index), device=x.device)
-    x, _ = _run_stack(params, x, cfg, positions=positions, caches=caches,
-                      cur_index=int(cur_index))
+    x, _ = _run_stack(params, x, cfg,
+                      positions=_decode_positions(cur_index, x.device),
+                      caches=caches, cur_index=cur_index)
     return _logits(params, cfg, x), caches
+
+
+def _index_arg(cur_index):
+    """A decode position as an int, or as the 0-d tensor it was given:
+    a tensor is never read on the host (an AOT bundle's meta tensors hold
+    no values), and slot writes and masks index with it as a tensor."""
+    if isinstance(cur_index, torch.Tensor):
+        return cur_index.long()
+    return int(cur_index)
+
+
+def _decode_positions(cur_index, device) -> torch.Tensor:
+    """The (1,) position tensor of a decode step."""
+    if isinstance(cur_index, torch.Tensor):
+        return cur_index.reshape(1).to(device)
+    return torch.full((1,), cur_index, device=device)
 
 
 # --------------------------------------------------------------------------
@@ -437,6 +474,15 @@ def init_cache(cfg: ModelConfig, batch: int, seq: int,
                dtype: torch.dtype = torch.bfloat16) -> dict:
     """Zeroed caches for ``batch`` sequences of up to ``seq`` tokens."""
     return tree_map(lambda t: torch.zeros(t[0], dtype=t[1], device=device),
+                    cache_layout(cfg, batch, seq, dtype),
+                    is_leaf=_is_layout_leaf)
+
+
+def abstract_cache(cfg: ModelConfig, batch: int, seq: int,
+                   dtype: torch.dtype = torch.bfloat16) -> dict:
+    """The caches of :func:`init_cache` as ``meta`` tensors (AOT bundles):
+    shapes and dtypes of :func:`cache_layout`, no storage."""
+    return tree_map(lambda t: torch.empty(t[0], dtype=t[1], device="meta"),
                     cache_layout(cfg, batch, seq, dtype),
                     is_leaf=_is_layout_leaf)
 
@@ -586,9 +632,9 @@ def _encdec_stage(params: dict, cfg: ModelConfig, frames: torch.Tensor,
 
 
 def _encdec_decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
-                        caches: dict, cur_index: int):
+                        caches: dict, cur_index):
     x = embed_lookup(params["embed"], tokens)
-    pos = torch.full((1,), cur_index, device=x.device)
+    pos = _decode_positions(cur_index, x.device)
     for i in range(cfg.repeats):
         p, c = params["decoder"][f"d{i}"], caches[f"d{i}"]
         x, _ = _apply_block(p, x, cfg, _ENCDEC_BLOCK, positions=pos,

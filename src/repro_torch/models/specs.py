@@ -6,9 +6,11 @@ trees are plain nested dicts of tensors, keyed as the JAX package's
 parameter pytrees are, so :func:`params_from_jax` carries the JAX
 package's parameters (as numpy arrays) across leaf for leaf and
 :func:`params_to_numpy` carries them back.  :func:`partition_specs_tree`
-resolves every parameter's logical axes on a mesh descriptor; the JAX
-package's ``shardings_tree`` (``NamedSharding`` objects) has no torch
-counterpart.
+resolves every parameter's logical axes on a mesh descriptor, and
+:func:`shardings_tree` (the JAX package's tree of ``NamedSharding``s) gives
+the same specs.
+:func:`abstract_tree` is the AOT view of a spec tree: tensors on the
+``meta`` device, with shapes and dtypes and no storage.
 
 Initial values come from one ``torch.Generator`` per leaf, seeded from
 ``(seed, leaf index)`` in sorted-key order: they match the JAX package's
@@ -25,7 +27,8 @@ import torch
 
 __all__ = ["ParamSpec", "init_param", "init_tree", "keyed_generator",
            "stacked", "count_params", "flatten", "map_with_path", "tree_map",
-           "params_from_jax", "params_to_numpy", "partition_specs_tree"]
+           "params_from_jax", "params_to_numpy", "partition_specs_tree",
+           "abstract_tree", "shardings_tree"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -141,6 +144,20 @@ def partition_specs_tree(specs, mesh, rules=None) -> dict:
 
     return tree_map(lambda s: resolve_spec(s.shape, s.axes, mesh, rules),
                     specs, is_leaf=_is_spec)
+
+
+def abstract_tree(specs) -> dict:
+    """Every parameter as a ``meta`` tensor of its shape and dtype: what an
+    AOT step (``train.step.aot_bundle``) runs on, allocating nothing."""
+    return tree_map(lambda s: torch.empty(s.shape, dtype=s.dtype,
+                                          device="meta"), specs,
+                    is_leaf=_is_spec)
+
+
+def shardings_tree(specs, mesh, rules=None) -> dict:
+    """The JAX package's tree of ``NamedSharding``s: on a mesh descriptor a
+    sharding is its partition spec, so this is :func:`partition_specs_tree`."""
+    return partition_specs_tree(specs, mesh, rules)
 
 
 def stacked(spec: ParamSpec, n: int) -> ParamSpec:

@@ -16,8 +16,8 @@ import torch
 
 from repro_torch.models.specs import flatten, tree_map
 
-__all__ = ["AdamWConfig", "OptState", "init", "schedule", "global_norm",
-           "apply_updates"]
+__all__ = ["AdamWConfig", "OptState", "init", "abstract_state", "schedule",
+           "global_norm", "apply_updates"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,6 +56,19 @@ def init(params, state_dtype: str = "float32") -> OptState:
     device = flatten(params)[0][1].device
     return OptState(step=torch.zeros((), dtype=torch.int32, device=device),
                     m=tree_map(zeros, params), v=tree_map(zeros, params))
+
+
+def abstract_state(param_structs, state_dtype: str = "float32") -> OptState:
+    """The AOT view of :func:`init`: ``meta`` tensors of the moments'
+    shapes in ``state_dtype`` and an int32 step, allocating nothing."""
+    dt = _dtype(state_dtype)
+
+    def meta(p):
+        return torch.empty(p.shape, dtype=dt, device="meta")
+
+    return OptState(step=torch.empty((), dtype=torch.int32, device="meta"),
+                    m=tree_map(meta, param_structs),
+                    v=tree_map(meta, param_structs))
 
 
 def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:

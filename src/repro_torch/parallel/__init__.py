@@ -1,10 +1,13 @@
 """Distribution layer (PyTorch port of :mod:`repro.parallel`): sharding
-rules and gradient compression.  The GPipe schedule (``pipeline.py``)
-needs several ranks and is not ported yet."""
-from repro_torch.parallel import compression, sharding
+rules, gradient compression with its all-reduce over a process group, and
+the GPipe schedule on CUDA streams (``pipeline.py``)."""
+from repro_torch.parallel import compression, pipeline, sharding
+from repro_torch.parallel.pipeline import pipeline_apply
 from repro_torch.parallel.sharding import (RULES_MULTI_POD, RULES_SINGLE_POD,
-                                           constrain, resolve_spec,
-                                           rules_for_mesh)
+                                           constrain, named_sharding,
+                                           resolve_spec, rules_for_mesh,
+                                           shard_shape)
 
-__all__ = ["sharding", "compression", "constrain", "resolve_spec",
+__all__ = ["sharding", "compression", "pipeline", "pipeline_apply",
+           "constrain", "resolve_spec", "named_sharding", "shard_shape",
            "rules_for_mesh", "RULES_SINGLE_POD", "RULES_MULTI_POD"]

@@ -11,7 +11,10 @@ several mesh axes.
 
 :func:`resolve_spec` returns the per-dimension assignment that the JAX
 package's ``PartitionSpec`` holds, as a tuple (trailing ``None``s
-trimmed).  The port runs at world size 1, where no mesh is active and
+trimmed); :func:`named_sharding` is the counterpart of the JAX package's
+``NamedSharding`` constructor and returns that tuple, and
+:func:`shard_shape` the shape one device holds of a tensor so sharded.
+The port runs at world size 1, where no mesh is active and
 :func:`constrain` is the identity; its calls are left out of the models.
 """
 from __future__ import annotations
@@ -21,7 +24,7 @@ from typing import Dict, Mapping, Optional, Sequence, Tuple
 from repro_torch.launch.mesh import Mesh
 
 __all__ = ["RULES_SINGLE_POD", "RULES_MULTI_POD", "rules_for_mesh",
-           "resolve_spec", "constrain"]
+           "resolve_spec", "named_sharding", "shard_shape", "constrain"]
 
 # logical axis -> ordered mesh-axis candidates
 RULES_SINGLE_POD: Dict[str, Tuple[str, ...]] = {
@@ -82,6 +85,35 @@ def resolve_spec(shape: Sequence[int], axes: Sequence[Optional[str]],
                    else picked[0] if picked else None)
     while out and out[-1] is None:
         out.pop()
+    return tuple(out)
+
+
+def named_sharding(shape: Sequence[int], axes: Sequence[Optional[str]],
+                   mesh: Mesh,
+                   rules: Optional[Mapping[str, Tuple[str, ...]]] = None
+                   ) -> tuple:
+    """The JAX package's ``named_sharding``: the tensor's partition spec on
+    ``mesh``, as :func:`resolve_spec` gives it (the mesh is the caller's,
+    so the spec alone names the sharding)."""
+    return resolve_spec(shape, axes, mesh, rules)
+
+
+def shard_shape(shape: Sequence[int], spec: tuple, mesh: Mesh) -> tuple:
+    """The shape one device holds of a ``shape`` tensor sharded by
+    ``spec`` on ``mesh``: each dimension divided by the product of the
+    mesh axes it is assigned to (the resolver only assigns axes that
+    divide it)."""
+    sizes = mesh.sizes
+    out = list(shape)
+    for i, assigned in enumerate(spec):
+        if assigned is None:
+            continue
+        names = assigned if isinstance(assigned, tuple) else (assigned,)
+        for name in names:
+            if out[i] % sizes[name]:
+                raise ValueError(f"dimension {i} of {tuple(shape)} does not "
+                                 f"divide over {name}={sizes[name]}")
+            out[i] //= sizes[name]
     return tuple(out)
 
 

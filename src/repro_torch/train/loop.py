@@ -78,11 +78,13 @@ class TrainLoop:
     # -- state ----------------------------------------------------------------
     def init_state(self):
         """Parameters from ``init_tree(seed)`` on the loop's device and zero
-        float32 AdamW moments (the first update casts them to the config's
-        ``state_dtype``), as the JAX package's loop makes them."""
+        AdamW moments in the config's ``state_dtype``.  (The JAX package's
+        loop makes float32 zeros, which its first update casts; the update
+        math runs in float32 either way, so the steps are the same, and a
+        restore reads bfloat16 moments into bfloat16 leaves.)"""
         params = init_tree(self.loop_cfg.seed, lm.build_specs(self.cfg),
                            self.device)
-        return params, adamw.init(params)
+        return params, adamw.init(params, self.opt_cfg.state_dtype)
 
     def restore_or_init(self):
         """``(params, opt, step)``: the newest checkpoint's, else fresh."""

@@ -6,6 +6,11 @@ every leaf as 32-bit words and folds them as ``(2, rows, 512)`` through
 the backend's ``reduce(stack, "xor")``: its words must equal the JAX
 package's word for word (the JAX side runs its Pallas kernel in interpret
 mode), and base XOR delta must give the new tree back bit for bit.
+
+A bfloat16 leaf is written as the JAX package writes it (``|V2`` records
+of its bits, the npz entry equal in key, dtype and bytes); the port
+restores the JAX package's bfloat16 checkpoints, and a ``TrainLoop`` with
+bfloat16 AdamW moments checkpoints, is preempted and resumes bit-exact.
 """
 import dataclasses
 
@@ -25,6 +30,8 @@ from repro_torch.api.backends import Backend
 from repro_torch.models import lm
 from repro_torch.models.specs import (flatten, params_from_jax,
                                       params_to_numpy)
+from repro_torch.optim import AdamWConfig
+from repro_torch.train.loop import LoopConfig, TrainLoop
 
 torch.set_num_threads(1)
 
@@ -144,3 +151,69 @@ def test_delta_words_equal_jax_and_round_trip(monkeypatch):
     assert _equal_bits(back, new)
     assert _equal_bits(ckpt.delta_apply(base, ckpt.delta_encode(base, base)),
                        base)
+
+
+def _npz_entries(path) -> dict:
+    with np.load(path) as data:
+        return {k: (data[k].dtype.str, data[k].shape, data[k].tobytes())
+                for k in data.files}
+
+
+def test_bfloat16_checkpoints_match_jax_and_resume(tmp_path):
+    """bfloat16 leaves: the npz entries equal the JAX package's; the port
+    restores the JAX package's bfloat16 checkpoint (which the JAX package
+    itself cannot read back, ROADMAP R11); a ``TrainLoop`` with bfloat16
+    moments is preempted after a checkpoint and resumes bit-exact, its
+    losses the uninterrupted run's."""
+    rng = np.random.default_rng(3)
+    host = {"m": rng.standard_normal((4, 6)).astype(np.float32),
+            "w": rng.standard_normal(5).astype(np.float32)}
+    ref_tree = {"m": jnp.asarray(host["m"], jnp.bfloat16),
+                "w": jnp.asarray(host["w"])}
+    tree = {"m": torch.tensor(host["m"]).to(torch.bfloat16),
+            "w": torch.tensor(host["w"])}
+    ref_ckpt.save(tmp_path / "jax", 1, ref_tree)
+    ckpt.save(tmp_path / "port", 1, tree)
+    got = _npz_entries(tmp_path / "port" / "step_00000001" / "arrays.npz")
+    want = _npz_entries(tmp_path / "jax" / "step_00000001" / "arrays.npz")
+    assert got == want and got["m"][0] == "|V2"
+    back, step = ckpt.restore(tmp_path / "jax", tree)
+    assert step == 1 and _equal_bits(back, tree)
+    assert back["m"].dtype == torch.bfloat16
+
+    cfg = dataclasses.replace(
+        configs.get_config("gemma3-1b"), d_model=32, n_heads=2, n_kv_heads=1,
+        head_dim=16, d_ff=64, vocab=128, repeats=1, tail=())
+    opt_cfg = AdamWConfig(lr=3e-3, warmup_steps=1, total_steps=6,
+                          state_dtype="bfloat16")
+
+    def loop(d):
+        return TrainLoop(cfg, LoopConfig(total_steps=6, ckpt_every=2,
+                                         ckpt_dir=str(tmp_path / d),
+                                         log_every=0),
+                         opt_cfg=opt_cfg, global_batch=2, seq_len=32,
+                         device="cpu")
+
+    whole = loop("whole").run()
+    first = loop("cut")
+    data_at = first.batch_fn
+
+    def preempting(step):
+        if step == 2:
+            first.request_preemption()
+        return data_at(step)
+
+    first.batch_fn = preempting
+    res1 = first.run()
+    assert res1["last_step"] == 3 and res1["opt"].m["embed"].dtype \
+        == torch.bfloat16
+    second = loop("cut")
+    params, opt, start = second.restore_or_init()
+    assert start == 3
+    assert _equal_bits({"p": params, "m": opt.m, "v": opt.v, "s": opt.step},
+                       {"p": res1["params"], "m": res1["opt"].m,
+                        "v": res1["opt"].v, "s": res1["opt"].step})
+    res2 = second.run()
+    assert [m["loss"] for m in res2["metrics"]] \
+        == [m["loss"] for m in whole["metrics"][3:]]
+    assert _equal_bits(res2["params"], whole["params"])

@@ -17,7 +17,8 @@ the JAX package's, and the training example on the CPU.
   within 1e-6 where the signs agree and ``|g| > 1e-6``.
   ``microbatches=2`` against 1 on the same batch: the loss and gradient
   norm within 1e-5 in float32, and the gradient norm within 2e-2 in
-  bfloat16.  The prefill and decode step factories serve the same model.
+  bfloat16; a batch of 5 at ``microbatches=2`` raises ``ValueError``.
+  The prefill and decode step factories serve the same model.
 - ``TrainLoop``: the loss drops (``tests/test_substrates.py``'s check), a
   preempted run resumes at its step with the uninterrupted run's losses,
   the straggler watchdog fires, and a checkpoint of ``(params,
@@ -162,6 +163,12 @@ def test_train_step_matches_jax_f32_and_microbatches(monkeypatch):
         params, adamw.init(params), batch)
     assert set(mb2) == {"loss", "grad_norm", "lr"}
     assert _rel(mb2["grad_norm"], mb1["grad_norm"]) <= BF16_TOL
+    # a batch that the microbatches do not divide raises, as the JAX
+    # package's reshape does: no step trains on a prefix of the batch
+    five = {"tokens": batch["tokens"][:, :16].repeat(2, 1)[:5]}
+    with pytest.raises(ValueError, match="does not divide"):
+        make_train_step(cfg, opt_cfg, microbatches=2)(
+            params, adamw.init(params), five)
 
 
 def _state(params, opt) -> dict:
