@@ -10,9 +10,20 @@
    the card at full 16 kB pages (131072 cells), bit for bit: rows that are
    and are not multiples of 8, every read kind (``parity`` with 1..8
    references), every op, both inversion flags, words with bit 31 set.
-   Then, at the shapes the main path gives each kernel, holds it against
-   its plain version once more and times both with CUDA events (and the
-   one PyTorch call that computes the same function, where there is one).
+   ``bitwise_reduce`` also takes its operands as separate allocations (N
+   from 1 to past its 64-pointer cap, where it folds in passes), as views
+   4 bytes off a 16-byte boundary, on planes that are not a multiple of 4
+   words and into an ``out=`` buffer; ``popcount_rows`` counts with and
+   without a mask.  Then, at the shapes the main path gives each kernel,
+   holds it against its plain version once more and times both with CUDA
+   events (and the one PyTorch call that computes the same function, where
+   there is one), with the card's time and device ops per call from
+   ``torch.profiler``; likewise ``bitwise_reduce`` on the two operands of
+   gemma3-1b's embedding leaf (the XOR delta's largest, 1.21 GB each,
+   against ``torch.bitwise_xor``), the root count with its tail mask in
+   the kernel against an AND pass first, and the masked count of (3,
+   2**21) words.  Prints the host's enqueue time per call of the word
+   kernels' wrappers and of each part of their launch path.
 3. Drives the compute-session main path, ``ComputeSession(device="cuda")``
    on the default SSD (16 channels x 8 dies, 16 kB pages): the seven
    Table-1 ops and the TLC AND3/OR3 fast paths under mlc, tlc and
@@ -82,7 +93,9 @@
    Then ``delta_encode`` / ``delta_apply`` of the whole parameter tree
    against a copy with one layer perturbed round-trips bit for bit,
    launching ``bitwise_reduce`` once per leaf and direction; its recorded
-   call equals the plain version.  Prints prefill and decode times,
+   calls (the encode's, and the apply's into the new leaf) equal the plain
+   version; the round trip is then timed against its byte bound.  Prints
+   prefill and decode times,
    tokens/s and the peak allocated memory.  A second engine over the same
    weights at max_seq 1024 (twice the 512-token window) serves prompts of
    480 tokens with 64 new, so each sliding-window ring wraps after 32
@@ -173,6 +186,11 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 COLS = 131072                        # one 16 kB page of cells
+#: words of one operand of the XOR delta of gemma3-1b's embedding leaf
+#: (262144 x 1152 float32, 1.21 GB)
+DELTA_LEAF_WORDS = 262144 * 1152
+#: the masked popcount's wide shape: 3 rows of 2**21 words (24 MB)
+POPCOUNT_WIDE = (3, 2 ** 21)
 BITMAP_USERS = 2 ** 25               # 256 pages per daily bitmap
 BITMAP_DAYS = 30
 TABLE1_BITS = 2 ** 20                # 8 pages per operand
@@ -371,6 +389,22 @@ def card_profile(fn, what: str):
     return None
 
 
+def device_ops(fn, iters: int, what: str) -> dict:
+    """Milliseconds per call that the card spends in kernels and memsets
+    (``ms``), and how many of them one call runs (``ops``), from
+    ``torch.profiler``; both None when no session recorded a kernel."""
+    def calls():
+        for _ in range(iters):
+            fn()
+
+    prof = card_profile(calls, what)
+    if prof is None:
+        return {"ms": None, "ops": None}
+    busy = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    return {"ms": sum(e.self_device_time_total for e in busy) / iters / 1e3,
+            "ops": sum(e.count for e in busy) / iters}
+
+
 def device_ms(fn, iters: int, what: str) -> "float | None":
     """Mean milliseconds per call that the card spends in kernels (all the
     kernels ``fn`` launches), from ``torch.profiler``; None when no
@@ -400,6 +434,44 @@ def random_words(gen: torch.Generator, shape) -> torch.Tensor:
     """int32 words over the full 32-bit range (half with bit 31 set)."""
     return torch.randint(-2 ** 31, 2 ** 31, shape, generator=gen,
                          device="cuda", dtype=torch.int64).to(torch.int32)
+
+
+def offset_copy(gen: torch.Generator, t: torch.Tensor) -> torch.Tensor:
+    """The words of ``t`` in a fresh allocation, 4 bytes past a 16-byte
+    boundary, so a kernel takes its scalar path over them."""
+    flat = torch.cat([random_words(gen, (1,)), t.reshape(-1)])[1:]
+    if flat.data_ptr() % 16 != 4:
+        fail("offset_copy: the view is not 4 bytes past a 16-byte boundary")
+    return flat.reshape(t.shape)
+
+
+def check_by_pointer(gen: torch.Generator) -> int:
+    """``bitwise_reduce`` over separate allocations against its plain
+    version: N = 1, 2, 3, 8, 32, the 64-pointer cap and past it (folded in
+    passes), planes of a page (4096 words) and of 4097 words (not a
+    multiple of 4), views 4 bytes off a 16-byte boundary, and ``out=``
+    into a fresh buffer.  Returns the largest word difference."""
+    from repro_torch.kernels import bitops, cuda
+
+    cap = cuda.MAX_OPERANDS
+    err = 0
+    for plane in (COLS // 32, COLS // 32 + 1):
+        for n in (1, 2, 3, 8, 32, cap, cap + 1, 2 * cap + 3):
+            seq = [random_words(gen, (plane,)) for _ in range(n)]
+            views = [offset_copy(gen, t) for t in seq]
+            for op in ("and", "or", "xor"):
+                for invert in (False, True):
+                    want = bitops.reference(seq, op, invert)
+                    out = torch.empty(plane, dtype=torch.int32, device="cuda")
+                    if bitops.bitwise_reduce(seq, op=op, invert=invert,
+                                             out=out) is not out:
+                        fail("bitwise_reduce did not return its out= buffer")
+                    for got in (bitops.bitwise_reduce(seq, op=op, invert=invert),
+                                bitops.bitwise_reduce(views, op=op, invert=invert),
+                                out):
+                        err = max(err, word_err(got, want))
+    sync()
+    return err
 
 
 def check_kernels(gen: torch.Generator) -> dict:
@@ -444,11 +516,23 @@ def check_kernels(gen: torch.Generator) -> dict:
                     want = bitops.reference(words, op, invert)
                     errs["bitwise_reduce"] = max(errs["bitwise_reduce"],
                                                  word_err(got, want))
+    # the checks added since PR 21 draw from a generator of their own, so
+    # ``gen``, which the later phases' data come from, gives what it gave
+    extra = torch.Generator(device="cuda")
+    extra.manual_seed(1)
+    errs["bitwise_reduce"] = max(errs["bitwise_reduce"],
+                                 check_by_pointer(extra))
     for shape in ((1, COLS // 32), (5, COLS // 32), (8, 130), (3, 2 * 1024 * 1024)):
         words = random_words(gen, shape)
         words[0, : min(shape[1], 7)] = -1                 # all-ones words
+        mask = random_words(extra, shape)
+        mask[-1] = -1
+        for m in (None, mask):
+            errs["popcount_rows"] = max(errs["popcount_rows"], word_err(
+                popcount.popcount_rows(words, m), popcount.reference(words, m)))
+        view = offset_copy(extra, words)                  # the scalar path
         errs["popcount_rows"] = max(errs["popcount_rows"], word_err(
-            popcount.popcount_rows(words), popcount.reference(words)))
+            popcount.popcount_rows(view, mask), popcount.reference(words, mask)))
     sync()
     bad = {k: v for k, v in errs.items() if v}
     if bad:
@@ -461,18 +545,33 @@ def time_kernels(gen: torch.Generator, errs: dict, fused_n: int,
     """Each kernel against its plain version, bit for bit, then both timed,
     at the main path's shapes: a sense group of ``rows`` pages, a
     ``fused_n``-operand fused chain over them, and a two-operand combine /
-    root popcount of ``rows`` pages of words.  Folds the differences into
-    ``errs``."""
+    root popcount of ``rows`` pages of words (the rows under the kernels'
+    own names).  Then the shapes where the word kernels' callers move
+    the most bytes: the XOR delta of gemma3-1b's embedding leaf, the
+    root count with its tail mask (4 MB), and a masked count of (3, 2**21)
+    words.  Folds the differences into ``errs``."""
     from repro_torch.kernels import bitops, fused, mlc_sense, popcount
 
     words = rows * COLS // 32
     vth = torch.randn(rows, COLS, generator=gen, device="cuda") * 2 + 2
     stack = torch.randn(fused_n, rows, COLS, generator=gen, device="cuda") * 2 + 2
     mask = torch.full((rows, COLS // 32), -1, dtype=torch.int32, device="cuda")
-    pair = random_words(gen, (2, 1, words))
+    stacked = random_words(gen, (2, words))
+    pair = [stacked[0].clone(), stacked[1].clone()]      # two allocations
+    del stacked
     flat = random_words(gen, (1, words))
+    # the rows added since PR 21 draw from a generator of their own (see
+    # check_kernels)
+    extra = torch.Generator(device="cuda")
+    extra.manual_seed(2)
+    tail = random_words(extra, (1, words))
+    wide = random_words(extra, POPCOUNT_WIDE)
+    wide_mask = random_words(extra, POPCOUNT_WIDE)
+    n_wide = wide.numel()
+    leaf = [random_words(extra, (DELTA_LEAF_WORDS,)) for _ in range(2)]
     lsb = KIND_REFS["lsb"]
     cell_bytes = 4 + 1 / 8
+    # name -> (kernel, plain, library or None, bytes, operations, iters)
     plan = {
         "mlc_sense": (
             lambda: mlc_sense.mlc_sense(vth, lsb, kind="lsb", n_refs=1),
@@ -502,6 +601,23 @@ def time_kernels(gen: torch.Generator, errs: dict, fused_n: int,
             lambda: popcount.popcount_rows(flat),
             lambda: popcount.reference(flat),
             None, words * 4 + 4, words * 2, 50),
+        "bitwise_reduce, delta leaf": (
+            lambda: bitops.bitwise_reduce(leaf, op="xor"),
+            lambda: bitops.reference(leaf, "xor", False),
+            lambda: torch.bitwise_xor(leaf[0], leaf[1]),
+            3 * DELTA_LEAF_WORDS * 4, DELTA_LEAF_WORDS, 10),
+        "popcount_rows, root count": (
+            lambda: popcount.popcount_rows(flat, tail),
+            lambda: popcount.reference(flat, tail),
+            None, 2 * words * 4 + 4, words * 3, 50),
+        "popcount_rows, (3, 2**21) masked": (
+            lambda: popcount.popcount_rows(wide, wide_mask),
+            lambda: popcount.reference(wide, wide_mask),
+            None, 2 * n_wide * 4 + 3 * 4, n_wide * 3, 50),
+        "popcount_rows, (3, 2**21)": (
+            lambda: popcount.popcount_rows(wide),
+            lambda: popcount.reference(wide),
+            None, n_wide * 4 + 3 * 4, n_wide * 2, 50),
     }
     out = {}
     for name, (kernel, plain, library, n_bytes, n_ops, iters) in plan.items():
@@ -512,23 +628,82 @@ def time_kernels(gen: torch.Generator, errs: dict, fused_n: int,
         if err:
             fail(f"{name} disagrees with its plain version at the main "
                  f"path's shape: max word difference {err}")
-        errs[name] = max(errs[name], err)
+        key = name.split(",")[0]
+        errs[key] = max(errs[key], err)
         bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
         ops_ms = n_ops / FP32_OPS_PER_S * 1e3
         plain_iters = max(2, iters // 5)
+        dev = device_ops(kernel, iters, name)
         out[name] = {
             "ms": time_ms(kernel, iters),
             "plain_ms": time_ms(plain, plain_iters, warmup=1),
             "library_ms": (time_ms(library, iters) if library is not None
                            else None),
-            "device_ms": device_ms(kernel, iters, name),
+            "device_ms": dev["ms"], "device_ops_per_call": dev["ops"],
             "plain_device_ms": device_ms(plain, plain_iters, f"{name} plain"),
+            "library_device_ms": (device_ms(library, iters, f"{name} library")
+                                  if library is not None else None),
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "bytes": n_bytes,
         }
-        torch.cuda.empty_cache()
+    # the root count as the executor ran it before the mask moved into the
+    # kernel: an AND pass, then the count of its result
+    dev = device_ops(lambda: popcount.popcount_rows(flat & tail), 50,
+                     "root count, AND first")
+    out["popcount_rows, root count"].update(
+        and_first_ms=time_ms(lambda: popcount.popcount_rows(flat & tail), 50),
+        and_first_device_ms=dev["ms"], and_first_ops_per_call=dev["ops"])
+    out["host_enqueue_us"] = host_split(pair, flat, tail)
+    del leaf, wide, wide_mask
+    torch.cuda.empty_cache()
     return out
+
+
+def host_split(pair: list, flat: torch.Tensor, tail: torch.Tensor,
+               iters: int = 1000) -> dict:
+    """Host microseconds per call, over ``iters`` calls with no
+    synchronize (the enqueue, not the card's time), of the
+    ``bitwise_reduce`` and ``popcount_rows`` wrappers at the 4 MB shape,
+    of ``torch.bitwise_or`` on the same operands, and of each part of the
+    wrappers' launch path on its own; the stream lookup and contiguity
+    call the wrappers made before are timed beside their replacements."""
+    from repro_torch.kernels import bitops, cuda, popcount
+
+    a, b = pair
+    out = torch.empty_like(a)
+    ptrs = [a.data_ptr(), b.data_ptr()]
+    arr = cuda.Pointers(*ptrs)
+    entry = cuda._entry("mcf_bitwise_reduce")
+    stream = cuda.current_stream()
+    parts = {
+        "bitwise_reduce wrapper": lambda: bitops.bitwise_reduce(pair, op="or"),
+        "torch.bitwise_or": lambda: torch.bitwise_or(a, b),
+        "popcount_rows wrapper, masked": lambda: popcount.popcount_rows(flat, tail),
+        "stream lookup (raw handle)": cuda.current_stream,
+        "stream lookup (torch.cuda.current_stream)":
+            lambda: torch.cuda.current_stream().cuda_stream,
+        "operand checks (2)": lambda: [cuda.check_cuda("operand", t, torch.int32)
+                                       for t in pair],
+        "contiguous() (2)": lambda: [t.contiguous() for t in pair],
+        "output torch.empty_like": lambda: torch.empty_like(a),
+        "output torch.empty(shape, dtype, device)": lambda: torch.empty(
+            a.shape, dtype=torch.int32, device=a.device),
+        "pointer array": lambda: cuda.Pointers(*ptrs),
+        "ctypes call + launch": lambda: entry(arr, 2, out.data_ptr(), a.numel(),
+                                              1, 0, stream),
+    }
+    res = {}
+    for name, fn in parts.items():
+        for _ in range(20):
+            fn()
+        sync()
+        t = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        res[name] = (time.perf_counter() - t) / iters * 1e6
+        sync()
+    return res
 
 
 # -- phase 3: the main path -------------------------------------------------------
@@ -688,8 +863,8 @@ BACKEND_KERNELS = {"sense": "mlc_sense", "sense_reduce": "sense_reduce",
 
 @dataclasses.dataclass
 class Recording:
-    #: ``(kernel, plan or None) -> (args, kwargs, output)`` of the first call
-    #: of each kernel at each read plan
+    #: ``(kernel, plan or None, out= given) -> (args, kwargs, output)`` of
+    #: the first call of each kernel at each read plan
     calls: dict = dataclasses.field(default_factory=dict)
     #: kernel -> calls made (each call is one launch on the card)
     counts: dict = dataclasses.field(
@@ -718,8 +893,11 @@ def recording(backend):
             rec.counts[name] += 1
             if out.device.type == "cuda":
                 rec.streams[name].add(torch.cuda.current_stream().cuda_stream)
-            if (name, plan) not in rec.calls:
-                rec.calls[name, plan] = (args, kwargs, out.clone())
+            # a reduce into a caller's buffer (the delta's apply) is kept
+            # apart from one that allocates its output
+            key = (name, plan, kwargs.get("out") is not None)
+            if key not in rec.calls:
+                rec.calls[key] = (args, kwargs, out.clone())
             return out
         return call
 
@@ -755,11 +933,11 @@ def hold_recorded(calls: dict) -> dict:
 
     plain = {"mlc_sense": sense, "sense_reduce": sense_reduce,
              "sense_reduce_popcount": sense_reduce_popcount,
-             "bitwise_reduce": lambda stack, op, invert=False:
-                 bitops.reference(stack, op, invert),
+             "bitwise_reduce": lambda operands, op, invert=False, out=None:
+                 bitops.reference(operands, op, invert),
              "popcount_rows": popcount.reference}
     out: dict = {}
-    for (name, _), (args, kwargs, got) in calls.items():
+    for (name, *_), (args, kwargs, got) in calls.items():
         out[name] = max(out.get(name, 0),
                         word_err(got, plain[name](*args, **kwargs)))
     sync()
@@ -1000,8 +1178,8 @@ def recovery_phase(gen: torch.Generator, errs: dict, gpu: str,
             launches[k] += n
         # the ladder's first retry shifts every reference by ``dv``
         dv = sess.reliability.policy.ladder_offsets()[0]
-        shifted = sorted({name for name, p in rec.calls if p is not None
-                          and (name, shift_plan(p, dv)) in rec.calls})
+        shifted = sorted({name for name, p, o in rec.calls if p is not None
+                          and (name, shift_plan(p, dv), o) in rec.calls})
         if not shifted:
             fail(f"recovery {encoding}: no kernel call at the ladder's "
                  f"first offset {dv:+.3f} V was recorded")
@@ -1623,9 +1801,27 @@ def lm_delta(params: dict, device: str, errs: dict, layer) -> dict:
             fail(f"lm: delta leaf {path} left the device")
     checked = hold_recorded(rec.calls)
     fold_errs(errs, checked, dict(cuda.launches), "lm")
+    # the round trip against its byte bound: encode reads both trees'
+    # words and writes the delta, apply reads the base and the delta and
+    # writes the new tree
+    n_bytes = 6 * 4 * sum(-(-leaf.numel() * leaf.element_size() // 4)
+                          for _, leaf in flatten(params))
+    timed = dict.fromkeys(("delta_roundtrip_ms", "delta_roundtrip_device_ms",
+                           "delta_roundtrip_device_ops"))
+    if on_card:
+        counted = dict(cuda.launches)   # timing runs are not the path's
+        del back
+        trip = lambda: delta_apply(params, delta_encode(params, newer))  # noqa: E731
+        dev = device_ops(trip, 1, "delta round trip")
+        timed = {"delta_roundtrip_ms": time_ms(trip, 3, warmup=1),
+                 "delta_roundtrip_device_ms": dev["ms"],
+                 "delta_roundtrip_device_ops": dev["ops"]}
+        cuda.launches.update(counted)
     return {"delta_s": delta_s, "delta_leaves": n_leaves,
             "perturbed_params": touched,
             "delta_zero_word_share": delta_sparsity(delta),
+            "delta_bytes": n_bytes,
+            "delta_bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3, **timed,
             "kernel_checks": sorted(checked)}
 
 
@@ -1740,7 +1936,12 @@ def lm_phase(errs: dict, gpu: str, device: str = "cuda", cfg=None,
           f"tokens/s); peak allocated {res['peak_allocated_gib']} GiB; XOR "
           f"delta of {res['delta_leaves']} leaves bit-exact in "
           f"{res['delta_s']:.2f} s, zero words "
-          f"{res['delta_zero_word_share']:.6f}; phase {res['seconds']:.2f} s;"
+          f"{res['delta_zero_word_share']:.6f}, round trip "
+          f"{res['delta_roundtrip_ms']} ms (card busy "
+          f"{res['delta_roundtrip_device_ms']} ms in "
+          f"{res['delta_roundtrip_device_ops']} ops) against its bound of "
+          f"{res['delta_bound_ms']:.3f} ms ({res['delta_bytes']} bytes); "
+          f"phase {res['seconds']:.2f} s;"
           f" launches " + json.dumps(launches), flush=True)
     res["ring_wrap"] = lm_ring_wrap(eng, gpu, batch)
     del eng, compute, caches
@@ -2755,11 +2956,26 @@ def main() -> int:
     t = time.perf_counter()
     timing = time_kernels(gen, errs, fused_n=BITMAP_DAYS // 2,
                           rows=BITMAP_USERS // COLS)
+    host = timing.pop("host_enqueue_us")
     print(f"kernels vs plain versions at the main path's shapes: bit-exact; "
           f"timing ({time.perf_counter() - t:.1f} s), device ms per call "
           "(torch.profiler; kernel / plain): " + json.dumps(
               {k: [v["device_ms"], v["plain_device_ms"]] for k, v in timing.items()}),
           flush=True)
+    for name, v in timing.items():
+        print(f"  {name} ({gpu}): {v['ms']:.5f} ms a call, device "
+              f"{v['device_ms']} ms in {v['device_ops_per_call']} ops, bound "
+              f"{v['bound_ms']:.5f} ms ({v['bound_by']}), plain "
+              f"{v['plain_ms']:.5f} ms, library {v['library_ms']} ms (device "
+              f"{v['library_device_ms']})", flush=True)
+    root = timing["popcount_rows, root count"]
+    print(f"  root count with an AND pass first ({gpu}): "
+          f"{root['and_first_ms']:.5f} ms a call, device "
+          f"{root['and_first_device_ms']} ms in "
+          f"{root['and_first_ops_per_call']} ops", flush=True)
+    print(f"host enqueue, us per call over 1000 calls ({gpu}): "
+          + json.dumps(host), flush=True)
+    record["host_enqueue_us"] = host
     torch.cuda.empty_cache()
 
     cuda.reset_launches()

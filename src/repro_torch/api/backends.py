@@ -11,6 +11,8 @@ It consumes and produces the lane-major packed layout as int32 words.
 """
 from __future__ import annotations
 
+from typing import Optional, Sequence, Union
+
 import torch
 
 from repro_torch.core.mcflash import ReadPlan
@@ -28,13 +30,18 @@ class Backend:
         """(R, C) Vth + read plan -> (R, C//32) packed int32."""
         return kops.sense_plan(vth, plan)
 
-    def reduce(self, stack: torch.Tensor, op: str, invert: bool = False) -> torch.Tensor:
-        """(N, R, W) packed operands -> (R, W) op-reduction (controller combine)."""
-        return kops.bitwise_reduce(stack, op=op, invert=invert)
+    def reduce(self, operands: Union[torch.Tensor, Sequence[torch.Tensor]],
+               op: str, invert: bool = False,
+               out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """N same-shape packed operands (a sequence, or an (N, ...) stack)
+        -> their op-reduction (controller combine), into ``out`` if given."""
+        return kops.bitwise_reduce(operands, op=op, invert=invert, out=out)
 
-    def popcount(self, words: torch.Tensor) -> torch.Tensor:
-        """(R, W) packed words -> (R,) int32 bit counts."""
-        return kops.popcount_rows(words)
+    def popcount(self, words: torch.Tensor,
+                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """(R, W) packed words (``& mask``, of the same shape, if given) ->
+        (R,) int32 bit counts."""
+        return kops.popcount_rows(words, mask)
 
     def sense_reduce(self, vth: torch.Tensor, plan: ReadPlan, *, op: str,
                      invert: bool = False) -> torch.Tensor:

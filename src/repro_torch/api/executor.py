@@ -888,9 +888,8 @@ class Executor:
                                     vth, f.plan, mask2, op=st.op,
                                     invert=st.invert)
                             else:
-                                words = fused_reduce(st, vth).reshape(
-                                    f.n_pages, -1) & mask2
-                                counts = backend.popcount(words)
+                                counts = backend.popcount(fused_reduce(
+                                    st, vth).reshape(f.n_pages, -1), mask2)
                             total = counts.sum(dtype=torch.int32)
                             done = ready(slot)
                         return (to_compute(total, done),)
@@ -909,18 +908,16 @@ class Executor:
                     else:
                         # controller combine on the compute stream, after
                         # the shard streams that made its operands
-                        stack = torch.stack([to_compute(partials[a], events[a])
-                                             for a in st.args])
-                        out = backend.reduce(
-                            stack.reshape(len(st.args), 1, -1),
-                            st.op, invert=st.invert)
-                        partials[st.out] = out.reshape(-1)
+                        partials[st.out] = backend.reduce(
+                            [to_compute(partials[a], events[a])
+                             for a in st.args], st.op, invert=st.invert)
                         events[st.out] = None
             outs = []
             for root, pc, mask in zip(roots, popcounts, masks):
-                out = to_compute(partials[root], events[root]) & mask
-                outs.append(backend.popcount(out.reshape(1, -1))[0]
-                            if pc else out)
+                out = to_compute(partials[root], events[root])
+                outs.append(backend.popcount(out.reshape(1, -1),
+                                             mask.reshape(1, -1))[0]
+                            if pc else out & mask)
             return tuple(outs)
 
         return run
@@ -952,4 +949,4 @@ def _fused_reduce(backend, max_ops: int, st: CombineStep,
     parts = [backend.sense_reduce(vth[s:s + max_ops], f.plan, op=st.op,
                                   invert=False)
              for s in range(0, f.n_operands, max_ops)]
-    return backend.reduce(torch.stack(parts), st.op, invert=st.invert)
+    return backend.reduce(parts, st.op, invert=st.invert)

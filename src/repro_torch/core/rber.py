@@ -68,7 +68,7 @@ def chunk_errors(plan: ReadPlan, op: str, vth: torch.Tensor,
     got = backend.sense(vth.reshape(-1, PAGE_BITS), plan)
     want = kernel_ref.pack_bits(
         mcflash.expected_result(op, lsb, msb).reshape(-1, PAGE_BITS))
-    diff = backend.reduce(torch.stack((got, want)), op="xor")
+    diff = backend.reduce((got, want), op="xor")
     return backend.popcount(diff).sum(dtype=torch.int64)
 
 

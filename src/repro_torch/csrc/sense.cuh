@@ -2,9 +2,10 @@
 //
 // Layout (lane-major, identical to the JAX package's): a tile of 4096 cells
 // packs into 128 words; word w of a tile holds bit k from column k*128 + w.
-// Every kernel here gives one thread one output word. Neighbouring threads
+// The sense kernels give one thread one output word. Neighbouring threads
 // take neighbouring w, so each of the 32 loads a word needs is one coalesced
-// 128-byte access per warp, and no re-layout is needed.
+// 128-byte access per warp, and no re-layout is needed. The word kernels
+// (bitops.cu, popcount.cu) take 16-byte loads where their inputs are aligned.
 //
 // Every C entry point launches on the caller's stream, does not synchronise,
 // allocates nothing, and returns cudaGetLastError() so the Python wrapper can
@@ -98,6 +99,31 @@ __device__ __forceinline__ void block_add(int v, int* out) {
 
 inline unsigned int grid_for(int64_t threads) {
   return static_cast<unsigned int>((threads + kBlock - 1) / kBlock);
+}
+
+// Blocks of kBlock threads the current card holds at once (2048 threads on
+// each SM), read once per device: the grid of a grid-stride kernel.
+inline int64_t resident_blocks() {
+  constexpr int kMaxDevices = 64;
+  static int cached[kMaxDevices] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices) dev = 0;
+  if (cached[dev] == 0) {
+    int sms = 0;
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cached[dev] = (sms > 0 ? sms : 1) * (2048 / kBlock);
+  }
+  return cached[dev];
+}
+
+inline bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+}
+
+// One thread per unit, but at most `cap` blocks (and at least one).
+inline unsigned int grid_for(int64_t units, int64_t cap) {
+  const int64_t blocks = (units + kBlock - 1) / kBlock;
+  return static_cast<unsigned int>(blocks < 1 ? 1 : (blocks < cap ? blocks : cap));
 }
 
 }  // namespace mcf

@@ -53,9 +53,16 @@ _SIGNATURES = {
                                    _I, _P, _P]),
     "mcf_sense_reduce_popcount": ("fused", [_P, _P, _P, _I64, _I64, _I64, _I,
                                             _I, _I, _I, _I, _P, _P]),
-    "mcf_bitwise_reduce": ("bitops", [_P, _P, _I64, _I64, _I64, _I, _I, _P]),
-    "mcf_popcount_rows": ("popcount", [_P, _P, _I64, _I64, _P]),
+    "mcf_bitwise_reduce": ("bitops", [_P, _I, _P, _I64, _I, _I, _P]),
+    "mcf_popcount_rows": ("popcount", [_P, _P, _P, _I64, _I64, _P]),
 }
+
+#: operand pointers one ``mcf_bitwise_reduce`` launch takes (``kMaxOperands``
+#: in ``csrc/bitops.cu``); a wider fold runs in passes
+MAX_OPERANDS = 64
+#: the host array of operand pointers the entry point copies into its
+#: kernel-parameter struct
+Pointers = _P * MAX_OPERANDS
 
 
 def reset_launches() -> None:
@@ -132,11 +139,16 @@ def _error_string(err: int) -> str:
     return fn(err).decode()
 
 
+def current_stream() -> int:
+    """The current CUDA stream of the current device, as a raw handle:
+    PyTorch's own C accessor, which builds no ``torch.cuda.Stream``."""
+    return torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
+
+
 def launch(kernel: str, symbol: str, *args) -> None:
     """Call one C entry point on the current stream, count the launch, and
     raise if the CUDA runtime refused it."""
-    stream = torch.cuda.current_stream().cuda_stream
-    err = _entry(symbol)(*args, stream)
+    err = _entry(symbol)(*args, current_stream())
     if err != 0:
         raise RuntimeError(f"CUDA kernel {kernel} failed to launch: "
                            f"error {err} ({_error_string(err)})")
@@ -162,9 +174,10 @@ def sense_args(refs: Sequence[float], kind: str,
 
 
 def check_cuda(name: str, t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """Validate a kernel input; returns it contiguous."""
-    if t.device.type != "cuda":
+    """Validate a kernel input; returns it contiguous (a copy only where
+    it is not)."""
+    if not t.is_cuda:
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
     if t.dtype != dtype:
         raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    return t.contiguous()
+    return t if t.is_contiguous() else t.contiguous()

@@ -17,7 +17,7 @@ exact uint32 arithmetic.
 """
 from __future__ import annotations
 
-from typing import Sequence, Union
+from typing import Optional, Sequence, Union
 
 import torch
 
@@ -106,15 +106,21 @@ def _combine(acc: torch.Tensor, nxt: torch.Tensor, op: str) -> torch.Tensor:
     raise ValueError(op)
 
 
-def bitwise_reduce(stack: torch.Tensor, op: str,
-                   invert: bool = False) -> torch.Tensor:
-    """(N, R, W) int32 words -> (R, W): fold the N operands with ``op``."""
+def bitwise_reduce(operands: Union[torch.Tensor, Sequence[torch.Tensor]],
+                   op: str, invert: bool = False,
+                   out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Fold N same-shape int32 word tensors with ``op``: a sequence of N,
+    or an (N, ...) stack.  The result has one operand's shape; with
+    ``out`` it is written there and ``out`` is returned."""
     if op not in OPS:
         raise ValueError(op)
-    acc = stack[0].clone()
-    for n in range(1, stack.shape[0]):
-        acc = _combine(acc, stack[n], op)
-    return ~acc if invert else acc
+    acc = operands[0].clone()
+    for n in range(1, len(operands)):
+        acc = _combine(acc, operands[n], op)
+    acc = ~acc if invert else acc
+    if out is None:
+        return acc
+    return out.copy_(acc)
 
 
 def sense_reduce(vth: torch.Tensor, refs: Refs, kind: str,
@@ -134,8 +140,8 @@ def sense_reduce_popcount(vth: torch.Tensor, refs: Refs, mask: torch.Tensor,
                           n_refs: int | None = None) -> torch.Tensor:
     """(R,) int32 counts of :func:`sense_reduce` ANDed with ``mask``."""
     words = sense_reduce(vth, refs, kind, sense_invert, op, invert,
-                         n_refs=n_refs) & mask
-    return popcount_rows(words)
+                         n_refs=n_refs)
+    return popcount_rows(words, mask)
 
 
 def popcount_words(words: torch.Tensor) -> torch.Tensor:
@@ -147,6 +153,10 @@ def popcount_words(words: torch.Tensor) -> torch.Tensor:
     return (((v * 0x01010101) & 0xFFFFFFFF) >> 24).to(torch.int32)
 
 
-def popcount_rows(words: torch.Tensor) -> torch.Tensor:
-    """(R, W) int32 words -> (R,) int32 row popcounts."""
+def popcount_rows(words: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(R, W) int32 words -> (R,) int32 row popcounts, of ``words & mask``
+    where a mask of the same shape is given."""
+    if mask is not None:
+        words = words & mask
     return popcount_words(words).sum(dim=-1, dtype=torch.int32)

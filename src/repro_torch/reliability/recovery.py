@@ -211,8 +211,7 @@ class ReliabilityManager:
                     parts = [backend.sense_reduce(vth[s:s + max_ops], shifted,
                                                   op=st.op, invert=False)
                              for s in range(0, f.n_operands, max_ops)]
-                    out = backend.reduce(torch.stack(parts), st.op,
-                                         invert=st.invert)
+                    out = backend.reduce(parts, st.op, invert=st.invert)
                 partials[st.out] = out.reshape(-1)
                 book(dev.mcflash_cost(f.wls, f.op_label,
                                       phases=shifted.sensing_phases), f.wls)
@@ -221,10 +220,9 @@ class ReliabilityManager:
                 if len(st.args) == 1 and not st.invert:
                     partials[st.out] = partials[st.args[0]]
                 else:
-                    stack = torch.stack([partials[a] for a in st.args])
                     partials[st.out] = backend.reduce(
-                        stack.reshape(len(st.args), 1, -1),
-                        st.op, invert=st.invert).reshape(-1)
+                        [partials[a] for a in st.args], st.op,
+                        invert=st.invert)
             step = f"{label} wave {wi} @{dv:+.3f}V"
             if per_die:
                 dev.ledger.add_die_batch(per_die, uj, commands=cmds,

@@ -2,10 +2,11 @@
 
 Both packages write ``step_XXXXXXXX/arrays.npz`` keyed by the ``/``-joined
 leaf path, so each restores what the other wrote.  The XOR delta views
-every leaf as 32-bit words and folds them as ``(2, rows, 512)`` through
-the backend's ``reduce(stack, "xor")``: its words must equal the JAX
-package's word for word (the JAX side runs its Pallas kernel in interpret
-mode), and base XOR delta must give the new tree back bit for bit.
+every leaf as flat 32-bit words and folds the two word tensors through
+the backend's ``reduce((base, new), "xor")``, with no stacking: its words
+must equal the JAX package's word for word (the JAX side runs its Pallas
+kernel in interpret mode), and base XOR delta must give the new tree back
+bit for bit.
 
 A bfloat16 leaf is written as the JAX package writes it (``|V2`` records
 of its bits, the npz entry equal in key, dtype and bytes); the port
@@ -119,16 +120,18 @@ def test_delta_words_equal_jax_and_round_trip(monkeypatch):
     calls = []
     real = Backend.reduce
 
-    def counted(self, stack, op, invert=False):
-        calls.append((tuple(stack.shape), op))
-        return real(self, stack, op, invert)
+    def counted(self, operands, op, invert=False, out=None):
+        calls.append((tuple(tuple(t.shape) for t in operands), op))
+        return real(self, operands, op, invert, out=out)
 
     monkeypatch.setattr(Backend, "reduce", counted)
     delta = ckpt.delta_encode(base, new)
-    n_leaves = len(flatten(base))
-    assert len(calls) == n_leaves
-    assert all(shape[0] == 2 and shape[2] == 512 and op == "xor"
-               for shape, op in calls)
+    leaves = flatten(base)
+    n_leaves = len(leaves)
+    # each leaf's own words, ceil(bytes / 4) of them, two operands, "xor"
+    leaf_words = sorted(((leaf.numel() * leaf.element_size() + 3) // 4,)
+                        for _, leaf in leaves)
+    assert sorted(calls) == [((w, w), "xor") for w in leaf_words]
 
     to_np = lambda t: t.numpy()                                # noqa: E731
     ref_delta = ref_ckpt.delta_encode(jax.tree.map(to_np, base,
@@ -147,7 +150,7 @@ def test_delta_words_equal_jax_and_round_trip(monkeypatch):
     assert 0 < ckpt.delta_sparsity(delta) < 1
 
     back = ckpt.delta_apply(base, delta)
-    assert len(calls) == 2 * n_leaves
+    assert sorted(calls[n_leaves:]) == [((w, w), "xor") for w in leaf_words]
     assert _equal_bits(back, new)
     assert _equal_bits(ckpt.delta_apply(base, ckpt.delta_encode(base, base)),
                        base)

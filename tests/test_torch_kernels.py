@@ -201,3 +201,62 @@ def test_wrappers_run_plain_versions_on_cpu_and_validate(rng):
                                     kind="lsb", sense_invert=False, op="and")
     with pytest.raises(ValueError, match="parity read needs"):
         cuda.sense_args([1.0, 2.0], "parity", 3)
+
+
+# -- operands by pointer and the masked count --------------------------------
+
+def test_sequence_form_and_masked_popcount_match_reference(rng):
+    """``bitwise_reduce``'s plain version folds a sequence of separate
+    tensors as it folds their stack (N = 1, 2, 3 and 33, one past half the
+    kernel's 64-pointer cap), into ``out`` as well, equal to
+    ``repro.kernels.ref`` and, at one (8, 512)-word tile, to the Pallas
+    kernel in interpret mode.  The masked ``popcount_rows`` equals the
+    JAX package's count of ``words & mask`` (rows 5 and 13, not multiples
+    of 8, zero-padded to the Pallas kernel's 8-row tiles), bit-31 words
+    included."""
+    for n in (1, 2, 3, 33):
+        stack = _words(rng, (n, 5, 130))
+        seq = [_t(s) for s in stack]              # separate allocations
+        for op in OPS:
+            for invert in (False, True):
+                msg = f"{n} {op} {invert}"
+                got = bitops.bitwise_reduce(seq, op=op, invert=invert)
+                assert got.shape == (5, 130)
+                assert torch.equal(got, bitops.bitwise_reduce(
+                    _t(stack), op=op, invert=invert)), msg
+                want = np.asarray(jref.bitwise_reduce(jnp.asarray(stack), op,
+                                                      invert))
+                np.testing.assert_array_equal(_u32(got), want, err_msg=msg)
+                out = torch.empty(5, 130, dtype=torch.int32)
+                assert bitops.bitwise_reduce(seq, op=op, invert=invert,
+                                             out=out) is out
+                np.testing.assert_array_equal(_u32(out), want, err_msg=msg)
+        flat = [t.reshape(-1) for t in seq]       # any one shape folds
+        np.testing.assert_array_equal(
+            _u32(tref.bitwise_reduce(flat, "xor")),
+            np.asarray(jref.bitwise_reduce(jnp.asarray(stack), "xor"))
+            .reshape(-1))
+    with pytest.raises(ValueError, match="shapes differ"):
+        bitops.bitwise_reduce([_t(_words(rng, (2, 4))), _t(_words(rng, (4, 2)))],
+                              op="or")
+
+    tile = _words(rng, (3, 8, 512))
+    got = bitops.bitwise_reduce([_t(s) for s in tile], op="xor", invert=True)
+    want = jbitops.bitwise_reduce(jnp.asarray(tile), op="xor", invert=True,
+                                  interpret=True)
+    np.testing.assert_array_equal(_u32(got), np.asarray(want))
+
+    for rows in (5, 8, 13):
+        words, mask = _words(rng, (rows, 512)), _words(rng, (rows, 512))
+        mask[0] = 0xFFFFFFFF                      # row 0 counts every bit
+        got = popcount.popcount_rows(_t(words), _t(mask))
+        assert got.dtype == torch.int32 and got.shape == (rows,)
+        masked = words & mask
+        np.testing.assert_array_equal(
+            got.numpy(), np.asarray(jref.popcount_rows(jnp.asarray(masked))))
+        padded = np.zeros((-(-rows // 8) * 8, 512), np.uint32)
+        padded[:rows] = masked
+        want = np.asarray(jpop.popcount_rows(jnp.asarray(padded),
+                                             interpret=True))[:rows]
+        np.testing.assert_array_equal(got.numpy(), want)
+        assert got[0] == popcount.popcount_rows(_t(words))[0]
