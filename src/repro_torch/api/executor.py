@@ -29,8 +29,12 @@ DAG into a static :class:`ExecPlan`, exactly as the JAX package does:
 
 Every lowered plan passes the session's static verifier
 (:mod:`repro_torch.verify`) before any dispatch; with a tracer attached the
-executor records lowering, runner build and dispatch as wall-clock spans
-and runner-cache hits, misses and evictions as instants.
+executor records lowering, verification, ledger accounting, runner build
+and dispatch (the Vth gathers and the runner's launches inside it) as
+wall-clock spans, serving batches' spans tagged with their request ids,
+and runner-cache evictions as instants.  Cache hits and misses are the
+cache's own ``hits``/``misses`` counters; a miss is also a ``compile``
+span.
 
 Ledger accounting is wave-batched: each schedule wave books one parallel
 ``add_die_batch`` step plus one ``add_channel_batch`` for its transfers.
@@ -686,24 +690,31 @@ class Executor:
         tracer = sess.trace
         # lowering (placement resolution) runs on the host wall clock; the
         # FTL's realignment copybacks inside it also land as device spans
-        with traced(tracer, "lower", "lower", roots=len(nodes)):
+        with traced(tracer, "lower", "lower", roots=len(nodes)) as span:
+            if span is not None and rids is not None:
+                span.args["rids"] = list(rids)
             plan = _Lowering(sess).lower_many(nodes, rids)
         # static verification runs at lowering time, before any accounting
         # or dispatch; memoized per signature so cache-hit plans pay ~nothing
         sig = plan.signature(sess.backend.name)
-        sess.verify_lowered_plan(plan, sig)
+        with traced(tracer, "verify", "verify-plan") as span:
+            hits = sess.verifier.cache_hits
+            sess.verify_lowered_plan(plan, sig)
+            if span is not None:
+                span.args["cached"] = sess.verifier.cache_hits > hits
         layout = self._placement_layout(plan)
-        self._account(plan, placed=layout is not None,
-                      attributed=rids is not None)
-        if sess.verifier.enabled and sess.device.ledger.mode != "independent":
-            # transfers may overlap only LATER waves' work in the step log
-            check_overlap_consistency(sess.device.ledger, plan=plan)
+        with traced(tracer, "account", "account-waves") as span:
+            if span is not None:
+                span.args["waves"] = len(plan.waves)
+            self._account(plan, placed=layout is not None,
+                          attributed=rids is not None)
+            if sess.verifier.enabled and \
+                    sess.device.ledger.mode != "independent":
+                # transfers may overlap only LATER waves' work in the step log
+                check_overlap_consistency(sess.device.ledger, plan=plan)
         # rids are not keyed: isomorphic batches replay one runner
         key = (self.max_fused_operands, sig, popcounts, layout)
         if tracer is not None:
-            tracer.instant("cache", "executable-hit" if key in self.cache
-                           else "executable-miss",
-                           waves=len(plan.waves), groups=len(plan.groups))
             evictions0 = self.cache.evictions
 
         def build():
@@ -720,14 +731,22 @@ class Executor:
         # placed, a die-local gather stays on its shard's stream
         place = layout is None
         with traced(tracer, "dispatch", "dispatch-waves",
-                    waves=len(plan.waves)):
-            group_vth = tuple(dev.vth_stack(g.wls, place=place)
-                              for g in plan.groups)
-            fused_vth = tuple(dev.vth_stack(st.fused.wls, place=place)
-                              for st in plan.steps if st.fused is not None)
+                    waves=len(plan.waves)) as span:
+            if span is not None and rids is not None:
+                span.args["rids"] = list(rids)
+            with traced(tracer, "gather", "vth-gather") as span:
+                group_vth = tuple(dev.vth_stack(g.wls, place=place)
+                                  for g in plan.groups)
+                fused_vth = tuple(dev.vth_stack(st.fused.wls, place=place)
+                                  for st in plan.steps
+                                  if st.fused is not None)
+                if span is not None:
+                    span.args["wordlines"] = sum(
+                        len(v) for v in group_vth + fused_vth)
             masks = tuple(sess.tail_mask(nb, w) for nb, w
                           in zip(n_bits_list, plan.all_root_words))
-            return fn(group_vth, fused_vth, masks)
+            with traced(tracer, "launch", "run-waves"):
+                return fn(group_vth, fused_vth, masks)
 
     def _account(self, plan: ExecPlan, placed: bool = False,
                  attributed: bool = False) -> None:

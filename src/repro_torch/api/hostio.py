@@ -10,6 +10,10 @@ On a card the copy is a ``non_blocking`` copy into pinned host memory,
 followed by a CUDA event; :attr:`DrainHandle.done` asks the event.  CPU
 tensors are host memory already.  Results come back as numpy arrays, with
 packed int32 words viewed as ``uint32``.
+
+With a tracer, each submit is a ``drain_submit`` span and each handle's
+first :meth:`DrainHandle.result` a ``drain_wait`` span, both tagged with
+the transfer's ``bytes`` and ``rid``.
 """
 from __future__ import annotations
 
@@ -18,6 +22,8 @@ from typing import Callable, Deque, List, Optional
 
 import numpy as np
 import torch
+
+from repro_torch.obs.trace import Tracer, traced
 
 __all__ = ["DrainHandle", "HostDrainQueue", "DEFAULT_DRAIN_DEPTH", "to_numpy"]
 
@@ -39,13 +45,15 @@ class DrainHandle:
     (memoized: repeat calls are free).
     """
 
-    __slots__ = ("_host", "_event", "_out", "n_bytes", "rid")
+    __slots__ = ("_host", "_event", "_out", "_tracer", "n_bytes", "rid")
 
     def __init__(self, tensor: torch.Tensor, n_bytes: int,
-                 rid: Optional[int] = None) -> None:
+                 rid: Optional[int] = None,
+                 tracer: Optional[Tracer] = None) -> None:
         self.n_bytes = int(n_bytes)
         #: owning request id (serving attribution), or None
         self.rid = rid
+        self._tracer = tracer
         self._out: Optional[np.ndarray] = None
         self._event = None
         if tensor.device.type == "cuda":
@@ -65,9 +73,11 @@ class DrainHandle:
 
     def result(self) -> np.ndarray:
         if self._out is None:
-            if self._event is not None:
-                self._event.synchronize()
-            self._out = to_numpy(self._host)
+            with traced(self._tracer, "drain_wait", "drain-result",
+                        bytes=self.n_bytes, rid=self.rid):
+                if self._event is not None:
+                    self._event.synchronize()
+                self._out = to_numpy(self._host)
             self._host = self._event = None
         return self._out
 
@@ -78,14 +88,17 @@ class HostDrainQueue:
     ``on_submit(n_bytes)`` fires once per submit (ledger/metrics hook);
     ``on_block()`` fires each time a submit had to resolve the oldest
     in-flight transfer to respect ``depth`` (backpressure events).
+    ``tracer`` (the session's) spans each submit and each handle's wait.
     """
 
     def __init__(self, depth: int = DEFAULT_DRAIN_DEPTH,
                  on_submit: Optional[Callable[[int], None]] = None,
-                 on_block: Optional[Callable[[], None]] = None) -> None:
+                 on_block: Optional[Callable[[], None]] = None,
+                 tracer: Optional[Tracer] = None) -> None:
         if depth < 1:
             raise ValueError(f"drain depth must be >= 1, got {depth}")
         self.depth = int(depth)
+        self.tracer = tracer
         self._pending: Deque[DrainHandle] = deque()
         self._on_submit = on_submit
         self._on_block = on_block
@@ -99,15 +112,17 @@ class HostDrainQueue:
         transfer first when the queue is full."""
         if n_bytes is None:
             n_bytes = tensor.numel() * tensor.element_size()
-        handle = DrainHandle(tensor, n_bytes, rid=rid)
-        if self._on_submit is not None:
-            self._on_submit(handle.n_bytes)
-        self._pending.append(handle)
-        while len(self._pending) > self.depth:
-            oldest = self._pending.popleft()
-            if self._on_block is not None:
-                self._on_block()
-            oldest.result()
+        with traced(self.tracer, "drain_submit", "drain-submit",
+                    bytes=n_bytes, rid=rid):
+            handle = DrainHandle(tensor, n_bytes, rid=rid, tracer=self.tracer)
+            if self._on_submit is not None:
+                self._on_submit(handle.n_bytes)
+            self._pending.append(handle)
+            while len(self._pending) > self.depth:
+                oldest = self._pending.popleft()
+                if self._on_block is not None:
+                    self._on_block()
+                oldest.result()
         return handle
 
     def drain(self) -> List[DrainHandle]:

@@ -44,7 +44,7 @@ from repro_torch.core.mcflash import ReadPlan
 from repro_torch.core.vth_model import ChipModel
 from repro_torch.kernels import ref as kernel_ref
 from repro_torch.obs.metrics import MetricsRegistry
-from repro_torch.obs.trace import Tracer
+from repro_torch.obs.trace import Tracer, traced
 from repro_torch.reliability import FaultConfig, FaultModel
 from repro_torch.verify import PlanContext, PlanVerifier
 
@@ -172,6 +172,7 @@ class ComputeSession:
         if trace:
             self.trace = trace if isinstance(trace, Tracer) else Tracer()
             self.ledger.tracer = self.trace
+        self.host_queue.tracer = self.trace
         self._tail_masks: "OrderedDict[Tuple[int, int], torch.Tensor]" = \
             OrderedDict()
         #: wear fault injection (``faults=`` or ``$REPRO_FAULTS``, any spec
@@ -278,10 +279,15 @@ class ComputeSession:
         if self.verifier.enabled:
             self.verifier.verify(plan, self.plan_context(), signature)
 
+    def _canonical(self, exprs: Sequence[BitVector]) -> List:
+        """The canonical DAG of each expression (a ``simplify`` span)."""
+        with traced(self.trace, "simplify", "simplify"):
+            return [simplify(e.node) for e in exprs]
+
     def lower(self, expr: BitVector) -> ExecPlan:
         """Canonicalize + lower ``expr`` to its static :class:`ExecPlan`
         without dispatching (the plan is still verified)."""
-        return self.executor.lower(simplify(expr.node))
+        return self.executor.lower(self._canonical([expr])[0])
 
     def materialize(self, expr: BitVector, *, unpacked: bool = False,
                     to_host: bool = True) -> torch.Tensor:
@@ -293,7 +299,7 @@ class ComputeSession:
         uint8 bits trimmed to ``expr.n_bits``.  ``to_host`` books the final
         controller->host transfer in the ledger.
         """
-        packed = self._checked_words(simplify(expr.node), expr.n_bits)
+        packed = self._checked_words(self._canonical([expr])[0], expr.n_bits)
         if to_host:
             self.device.ext_to_host(int(packed.shape[-1]) * 4)
         if unpacked:
@@ -316,7 +322,7 @@ class ComputeSession:
         """Like :meth:`materialize`, but stream the packed result to the host
         through the bounded drain queue; ``handle.result()`` (or
         :meth:`drain`) returns it as a numpy uint32 array."""
-        packed = self._checked_words(simplify(expr.node), expr.n_bits)
+        packed = self._checked_words(self._canonical([expr])[0], expr.n_bits)
         return self.host_queue.submit(packed, int(packed.shape[-1]) * 4)
 
     def drain(self) -> List[np.ndarray]:
@@ -331,7 +337,7 @@ class ComputeSession:
         senses coalesce into shared groups/waves.  ``rids`` tags the plan's
         sense items with owning request ids (trace/metrics attribution)."""
         return self.executor.lower_many(
-            [simplify(e.node) for e in exprs],
+            self._canonical(exprs),
             list(rids) if rids is not None else None)
 
     def _run_batch(self, exprs: Sequence[BitVector],
@@ -342,7 +348,7 @@ class ComputeSession:
         root materializes as words first (the fused on-device popcount would
         hide bit errors), is verified/recovered per root, and counts fold
         afterwards."""
-        nodes = [simplify(e.node) for e in exprs]
+        nodes = self._canonical(exprs)
         n_bits = [e.n_bits for e in exprs]
         rid_list = list(rids) if rids is not None else None
         if self.reliability is not None:
@@ -426,7 +432,7 @@ class ComputeSession:
         """Materialize + bit-count on the device; the count fuses into the
         root kernel when the plan allows, and only the 4-byte count crosses
         to the host."""
-        node = simplify(expr.node)
+        node = self._canonical([expr])[0]
         if self.reliability is not None:
             # words must exist to checkword-verify; the count then folds
             # afterwards (the fused popcount would hide bit errors)

@@ -35,6 +35,7 @@ from repro_torch.flash.energy import EnergyModel
 from repro_torch.flash.geometry import SSDConfig
 from repro_torch.flash.timing import TimingModel
 from repro_torch.kernels import ref as kernel_ref
+from repro_torch.obs.trace import traced
 
 WordlineKey = Tuple[int, int, int]  # (plane, block, wordline)
 
@@ -166,46 +167,55 @@ class FlashDevice:
             raise ValueError("one lsb and one msb page per wordline")
         if not wls:
             return
+        tracer = self.ledger.tracer
         vths = []
-        for i, wl in enumerate(wls):
-            lsb_bits, msb_bits = lsb_pages[i], msb_pages[i]
-            if tuple(lsb_bits.shape) != (self._page_bits,):
-                raise ValueError(f"page shape {tuple(lsb_bits.shape)}")
-            plane, block, _ = wl
-            n_pe = self.pe_counts.get((plane, block), 0)
-            if encoding == tlc.MLC:
-                vth, _ = vth_model.program_page(
-                    self._gen, lsb_bits, msb_bits, self.chip,
-                    n_pe=float(n_pe), retention_hours=retention_hours)
-            else:
-                if retention_hours != 0.0:
-                    raise ValueError("retention drift is not modeled for "
-                                     "8-state encodings")
-                pages = ((lsb_bits, csb_pages[i], msb_bits)
-                         if encoding == tlc.TLC else (lsb_bits, msb_bits))
-                states = tlc.encode_states(encoding, pages)
-                vth = tlc.program_tlc(self._gen, states, self.tlc_chip,
-                                      n_pe=float(n_pe))
-            if self.faults is not None:
-                vth = self.faults.perturb(vth, plane=plane, block=block,
-                                          wl=wl[2], n_pe=n_pe)
-            vths.append(vth)
-        self._keep_records(wls, (lsb_pages, csb_pages, msb_pages)
-                           if encoding == tlc.TLC else (lsb_pages, msb_pages),
-                           encoding, records)
-        slots = []
-        for wl in wls:
-            slot = self._slot_of.get(wl)
-            if slot is None:
-                # die-affinity allocation: the row lives on its plane's die shard
-                (slot,) = self.arena.alloc(self.die_of_plane(wl[0]), 1,
-                                           encoding=encoding)
-                self._slot_of[wl] = slot
-            elif self.arena.encoding_of(slot) != encoding:
-                # reprogram under a different encoding reuses the slot
-                self.arena.retag(slot, encoding)
-            slots.append(slot)
-        self.arena.write(slots, torch.stack(vths))
+        with traced(tracer, "program_draw", "vth-draw") as span:
+            if span is not None:
+                span.args["wordlines"] = len(wls)
+            for i, wl in enumerate(wls):
+                lsb_bits, msb_bits = lsb_pages[i], msb_pages[i]
+                if tuple(lsb_bits.shape) != (self._page_bits,):
+                    raise ValueError(f"page shape {tuple(lsb_bits.shape)}")
+                plane, block, _ = wl
+                n_pe = self.pe_counts.get((plane, block), 0)
+                if encoding == tlc.MLC:
+                    vth, _ = vth_model.program_page(
+                        self._gen, lsb_bits, msb_bits, self.chip,
+                        n_pe=float(n_pe), retention_hours=retention_hours)
+                else:
+                    if retention_hours != 0.0:
+                        raise ValueError("retention drift is not modeled for "
+                                         "8-state encodings")
+                    pages = ((lsb_bits, csb_pages[i], msb_bits)
+                             if encoding == tlc.TLC else (lsb_bits, msb_bits))
+                    states = tlc.encode_states(encoding, pages)
+                    vth = tlc.program_tlc(self._gen, states, self.tlc_chip,
+                                          n_pe=float(n_pe))
+                if self.faults is not None:
+                    vth = self.faults.perturb(vth, plane=plane, block=block,
+                                              wl=wl[2], n_pe=n_pe)
+                vths.append(vth)
+        with traced(tracer, "program_store", "arena-write") as span:
+            if span is not None:
+                span.args["wordlines"] = len(wls)
+            self._keep_records(wls, (lsb_pages, csb_pages, msb_pages)
+                               if encoding == tlc.TLC
+                               else (lsb_pages, msb_pages),
+                               encoding, records)
+            slots = []
+            for wl in wls:
+                slot = self._slot_of.get(wl)
+                if slot is None:
+                    # die-affinity allocation: the row lives on its plane's
+                    # die shard
+                    (slot,) = self.arena.alloc(self.die_of_plane(wl[0]), 1,
+                                               encoding=encoding)
+                    self._slot_of[wl] = slot
+                elif self.arena.encoding_of(slot) != encoding:
+                    # reprogram under a different encoding reuses the slot
+                    self.arena.retag(slot, encoding)
+                slots.append(slot)
+            self.arena.write(slots, torch.stack(vths))
 
     def _keep_records(self, wls: List[WordlineKey], roles, encoding: str,
                       records: "Tuple[torch.Tensor, ...] | None") -> None:

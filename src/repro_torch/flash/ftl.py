@@ -216,20 +216,24 @@ class FTL:
                              "operands")
         if len(set(names)) != len(names):
             raise ValueError(f"duplicate names {names}")
-        paged = [self._paginate(b) for b in bits]
-        if len({len(p) for p in paged}) != 1:
-            raise ValueError("aligned operands must match in size")
-        for n in names:
-            self._invalidate(n)
-        die = self._home_die(die)
-        placement = self._placement(len(paged[0]), die)
-        self._program_roles(placement, dict(zip(roles, paged)), encoding)
-        for name, b, role in zip(names, bits, roles):
-            n_bits = int(b.shape[0])
-            self.vectors[name] = VectorMeta(name, n_bits, placement, role,
-                                            die=die, encoding=encoding,
-                                            check=self._checkword(b, n_bits))
-            self._group_of[name] = tuple(names)
+        with traced(self._tracer, "program", "write-group",
+                    encoding=encoding) as span:
+            paged = [self._paginate(b) for b in bits]
+            if len({len(p) for p in paged}) != 1:
+                raise ValueError("aligned operands must match in size")
+            if span is not None:
+                span.args["wordlines"] = len(paged[0])
+            for n in names:
+                self._invalidate(n)
+            die = self._home_die(die)
+            placement = self._placement(len(paged[0]), die)
+            self._program_roles(placement, dict(zip(roles, paged)), encoding)
+            for name, b, role in zip(names, bits, roles):
+                n_bits = int(b.shape[0])
+                self.vectors[name] = VectorMeta(
+                    name, n_bits, placement, role, die=die, encoding=encoding,
+                    check=self._checkword(b, n_bits))
+                self._group_of[name] = tuple(names)
 
     def write_pair_aligned(self, name_a: str, bits_a: torch.Tensor,
                            name_b: str, bits_b: torch.Tensor,
@@ -268,8 +272,10 @@ class FTL:
             raise ValueError("aligned operands must match in size")
         self._invalidate(name_a)
         self._invalidate(name_b)
-        with traced(self._tracer, "ftl", f"copyback-align[{name_a},{name_b}]",
-                    pages=len(ma.pages)):
+        with traced(self._tracer, "ftl", "copyback-align") as span:
+            if span is not None:
+                span.name = f"copyback-align[{name_a},{name_b}]"
+                span.args["pages"] = len(ma.pages)
             placement = [self.allocate_wordline(wa[0]) for wa in ma.pages]
             self.device.copyback_align(ma.pages, mb.pages, placement,
                                        ma.role, mb.role)
@@ -297,8 +303,10 @@ class FTL:
         # corrupted bits into the new placement AND recompute matching
         # checkwords; with recovery on, each vector reads back checked
         mgr = getattr(self._session, "reliability", None)
-        with traced(self._tracer, "ftl",
-                    f"align-group[{','.join(names)}]", encoding=enc):
+        with traced(self._tracer, "ftl", "align-group",
+                    encoding=enc) as span:
+            if span is not None:
+                span.name = f"align-group[{','.join(names)}]"
             bits = []
             for m in metas:
                 if mgr is not None:
@@ -381,8 +389,10 @@ class FTL:
             return meta
         copy = self.derived_not_name(name)
         if copy not in self.vectors:
-            with traced(self._tracer, "ftl", f"not-ready-copy[{name}]",
-                        pages=len(meta.pages)):
+            with traced(self._tracer, "ftl", "not-ready-copy") as span:
+                if span is not None:
+                    span.name = f"not-ready-copy[{name}]"
+                    span.args["pages"] = len(meta.pages)
                 packed = self.device.page_read_batch(meta.pages, meta.role)
                 self.device.dma_to_controller_batch(meta.pages)
                 bits = kernel_ref.unpack_bits(

@@ -11,6 +11,35 @@
 
 Turn it on with ``ComputeSession(trace=True)`` and export with
 ``session.trace.export("out.json")`` / print ``session.trace.report()``.
+
+Wall-span categories (each span carries ``sid`` and ``parent``; per
+category :attr:`Tracer.totals` keeps count, time and self time):
+
+- ``simplify`` (``simplify``): the session canonicalizing expressions.
+- ``lower`` (``lower``): lowering a batch of DAGs into a plan.
+- ``verify`` (``verify-plan``): the static verifier (``cached``: verdict
+  memoized).
+- ``account`` (``account-waves``): the ledger's per-wave bookkeeping and
+  its overlap check.
+- ``compile`` (``build-executable``): building a cached wave runner.
+- ``dispatch`` (``dispatch-waves``): a plan's dispatch, holding
+  ``gather`` (``vth-gather``: the host walk of the Vth refs and the
+  gather launches) and ``launch`` (``run-waves``: the runner's launches).
+- ``serve_poll`` (``poll``) and ``serve_step`` (``batch N``): the serving
+  engine's batch-formation check and one coalesced batch; ``serve``
+  (``request N``): a request's life from admission to its result, marked
+  after the fact and never a parent.
+- ``drain_submit`` (``drain-submit``) and ``drain_wait``
+  (``drain-result``): a device->host result's submit and its receipt.
+- ``program`` (``write-group``): an aligned write, holding
+  ``program_draw`` (``vth-draw``: the per-wordline Vth draw) and
+  ``program_store`` (``arena-write``: page records and the arena write).
+- ``ftl``: copyback realignment and NOT-ready copies; ``reliability``:
+  recovery.
+
+Serving spans carry their request ids (``rids``, or ``rid`` on drains and
+requests).  Instants: ``executable-evicted``, ``tiled-megakernel-split``,
+``checkword-mismatch``.
 """
 from repro_torch.obs.metrics import (Counter, Gauge, Histogram, Metric,
                                      MetricsRegistry)

@@ -13,10 +13,14 @@ offset (the sum of earlier step maxima) and whose max end advances it, so
   (die lanes end at ``die_step_us``, channel lanes at ``channel_step_us``,
   the host-link lane at ``host_busy_us``; the makespan is their max).
 
-A second clock records *host wall-clock* spans (lowering, executable
-compile/retrace, wave dispatch, FTL realignment) via the :meth:`Tracer.span`
-context manager, plus instant events (cache hits/misses/evictions).  Both
-clocks export into one Chrome trace-event JSON (``chrome://tracing`` /
+A second clock records *host wall-clock* spans (lowering, verification,
+dispatch, gathers, drains, programming; the categories are listed in
+:mod:`repro_torch.obs`) via the :meth:`Tracer.span` context manager, plus
+instant events (runner evictions, fused-chain splits).  Wall spans nest on
+the one host thread: each gets a span id (``sid``) and the id of the span
+open around it when it began (``parent``), and every close adds to
+:attr:`Tracer.totals`, per category, whether or not the span is stored.
+Both clocks export into one Chrome trace-event JSON (``chrome://tracing`` /
 Perfetto loadable) as separate processes, and into the human-readable text
 report in :mod:`repro_torch.obs.report`.
 """
@@ -49,18 +53,57 @@ class Span:
     start_us: float
     dur_us: float
     args: Dict[str, object] = dataclasses.field(default_factory=dict)
+    #: wall spans: this span's id, and the id of the span open around it
+    #: when it began (None at the top, and for marked request spans)
+    sid: Optional[int] = None
+    parent: Optional[int] = None
 
     @property
     def end_us(self) -> float:
         return self.start_us + self.dur_us
 
 
+class _Open:
+    """The context manager :meth:`Tracer.span` returns: it enters by opening
+    a wall span on the tracer's stack and yields the :class:`Span`, whose
+    ``name`` and ``args`` the block may still fill in; it exits by closing
+    it."""
+
+    __slots__ = ("_tracer", "_span")
+
+    def __init__(self, tracer: "Tracer", span: Span) -> None:
+        self._tracer, self._span = tracer, span
+
+    def __enter__(self) -> Span:
+        tr, sp = self._tracer, self._span
+        sp.sid = tr._next_sid
+        tr._next_sid += 1
+        if tr._open:
+            sp.parent = tr._open[-1][0].sid
+        tr._open.append([sp, 0.0])
+        sp.start_us = tr._now_us()
+        return sp
+
+    def __exit__(self, *exc) -> None:
+        tr, sp = self._tracer, self._span
+        sp.dur_us = tr._now_us() - sp.start_us
+        _, child_us = tr._open.pop()
+        if tr._open:
+            tr._open[-1][1] += sp.dur_us
+        tr._add_total(sp.category, sp.dur_us, sp.dur_us - child_us)
+        tr._push(tr.wall_spans, sp)
+
+
 class Tracer:
     """Collects device-timeline spans, wall-clock spans, and instant events.
 
     ``max_spans`` bounds memory on long-running (serving) sessions: past the
-    cap new spans are counted in ``dropped`` instead of stored, so counters
-    stay exact while the timeline truncates.
+    cap new spans are counted in ``dropped`` instead of stored, so the
+    timeline truncates.  :attr:`totals` never does: per wall-span category
+    it holds ``{"count", "us", "self_us"}`` (self time: the duration less
+    the time the span's direct children cover), added to on every close.
+    The totals are monotonic counters that :meth:`clear` leaves alone; a
+    reader takes differences.
     """
 
     def __init__(self, max_spans: int = 200_000) -> None:
@@ -73,8 +116,13 @@ class Tracer:
         self.meta: Dict[str, object] = {}
         self.max_spans = max_spans
         self.dropped = 0
+        #: category -> {"count", "us", "self_us"} over every wall span closed
+        self.totals: Dict[str, Dict[str, float]] = {}
         self._die_steps = 0         # parallel die dispatch steps seen
         self._channel_steps = 0
+        self._next_sid = 0
+        #: open wall spans, outermost first: [span, us its children covered]
+        self._open: List[list] = []
         self._epoch = time.perf_counter()
 
     # -- virtual device timeline (driven by the Ledger) ----------------------
@@ -123,28 +171,37 @@ class Tracer:
         base of :meth:`mark_span` and :meth:`span`."""
         return self._now_us()
 
+    def _add_total(self, category: str, us: float, self_us: float) -> None:
+        tot = self.totals.get(category)
+        if tot is None:
+            tot = self.totals[category] = {"count": 0, "us": 0.0,
+                                           "self_us": 0.0}
+        tot["count"] += 1
+        tot["us"] += us
+        tot["self_us"] += self_us
+
     def mark_span(self, category: str, name: str, start_us: float,
                   dur_us: float, **args) -> None:
         """Record a wall-clock span from explicit endpoints.
 
         The serving engine uses this for request-lifecycle spans (admit ->
         complete): the endpoints are known only after the fact, so the
-        :meth:`span` context manager's bracketing doesn't fit."""
+        :meth:`span` context manager's bracketing doesn't fit.  It adds to
+        :attr:`totals` like any span, and is never a parent."""
+        dur = max(0.0, float(dur_us))
+        self._add_total(category, dur, dur)
+        sid = self._next_sid
+        self._next_sid += 1
         self._push(self.wall_spans,
-                   Span(name, category, "wall", float(start_us),
-                        max(0.0, float(dur_us)), dict(args)))
+                   Span(name, category, "wall", float(start_us), dur,
+                        dict(args), sid=sid))
 
-    @contextlib.contextmanager
-    def span(self, category: str, name: str, **args):
+    def span(self, category: str, name: str, **args) -> _Open:
         """Wall-clock span around a host-side phase (lowering, compile,
-        dispatch, FTL realignment)."""
-        t0 = self._now_us()
-        try:
-            yield
-        finally:
-            self._push(self.wall_spans,
-                       Span(name, category, "wall", t0,
-                            self._now_us() - t0, dict(args)))
+        dispatch, FTL realignment, ...); ``with`` yields the :class:`Span`,
+        so the block can fill in ``name`` and ``args`` it computes only
+        when a tracer is attached."""
+        return _Open(self, Span(name, category, "wall", 0.0, 0.0, args))
 
     def instant(self, category: str, name: str, **args) -> None:
         """Point event on the wall clock (cache hit/miss/eviction, split)."""
@@ -216,7 +273,9 @@ class Tracer:
         for s in self.wall_spans:
             events.append({"ph": "X", "pid": WALL_PID, "tid": 1,
                            "name": s.name, "cat": s.category,
-                           "ts": s.start_us, "dur": s.dur_us, "args": s.args})
+                           "ts": s.start_us, "dur": s.dur_us,
+                           "args": {**s.args, "sid": s.sid,
+                                    "parent": s.parent}})
         for ev in self.instants:
             events.append({"ph": "i", "pid": WALL_PID, "tid": 1, "s": "p",
                            "name": ev["name"], "cat": ev["category"],
@@ -240,6 +299,8 @@ class Tracer:
         return timeline_report(self, ledger)
 
     def clear(self) -> None:
+        """Drop the stored timeline; :attr:`totals`, the span ids and any
+        span still open are kept."""
         self.device_spans.clear()
         self.wall_spans.clear()
         self.instants.clear()
@@ -248,9 +309,15 @@ class Tracer:
         self._die_steps = self._channel_steps = 0
 
 
+#: what :func:`traced` returns with tracing off (yields None; reusable)
+_OFF = contextlib.nullcontext()
+
+
 def traced(tracer: Optional[Tracer], category: str, name: str, **args):
     """``tracer.span(...)`` that degrades to a no-op when tracing is off —
-    instrumentation points stay one-liners."""
+    instrumentation points stay one-liners.  ``with`` yields the span, or
+    None with tracing off: a site computes a name or an argument only
+    under ``if span is not None``."""
     if tracer is None:
-        return contextlib.nullcontext()
+        return _OFF
     return tracer.span(category, name, **args)

@@ -30,9 +30,13 @@ oldest request past the bound — and admission past ``max_queue_depth``
 auto-dispatches to bound queue memory.
 
 **Observability.**  Every die/channel span the tracer emits for a serve
-batch carries the owning request ids (``args["rids"]``), each completed
-request stamps a wall-clock ``serve``-category span (admit -> result
-resolved, tagged ``rid``), and the engine's typed metrics registry exposes
+batch carries the owning request ids (``args["rids"]``), and so do the
+batch's wall-clock spans: its ``serve_step`` span, the executor's
+``lower`` and ``dispatch`` spans inside it, and each ticket's drain spans
+(``args["rid"]``).  A :meth:`~QueryEngine.poll` with requests queued is a
+``serve_poll`` span.  Each completed request stamps a wall-clock
+``serve``-category span (admit -> result resolved, tagged ``rid`` and
+``batch``), and the engine's typed metrics registry exposes
 ``requests_admitted`` / ``requests_completed`` / ``batches_dispatched`` /
 ``queue_depth`` alongside the session's ``coalesced_sense_groups`` /
 ``waves_shared`` counters — per-request p99 falls directly out of the
@@ -47,6 +51,7 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from repro_torch.obs.metrics import MetricsRegistry
+from repro_torch.obs.trace import traced
 
 __all__ = ["QueryEngine", "QueryTicket", "SLOConfig"]
 
@@ -175,10 +180,6 @@ class QueryEngine:
         self._queue.append(ticket)
         self.metrics.counter("requests_admitted").add(1)
         self.metrics.gauge("queue_depth").set(len(self._queue))
-        tracer = self.session.trace
-        if tracer is not None:
-            tracer.instant("serve", "admit", rid=ticket.rid,
-                           popcount=popcount, priority=priority)
         if len(self._queue) >= self.slo.max_queue_depth:
             self.step()
         return ticket
@@ -218,10 +219,14 @@ class QueryEngine:
             t.waited_batches += 1
         bi = self._batches
         self._batches += 1
-        handles = self.session.materialize_batch_async(
-            [t._expr for t in batch],
-            popcount=[t.popcount for t in batch],
-            rids=[t.rid for t in batch])
+        rids = [t.rid for t in batch]
+        with traced(self.session.trace, "serve_step", "batch") as span:
+            if span is not None:
+                span.name = f"batch {bi}"
+                span.args.update(batch=bi, rids=rids)
+            handles = self.session.materialize_batch_async(
+                [t._expr for t in batch],
+                popcount=[t.popcount for t in batch], rids=rids)
         for t, h in zip(batch, handles):
             t._handle = h
             t.batch = bi
@@ -238,13 +243,14 @@ class QueryEngine:
         submit; an empty return means the batch former is still waiting."""
         if not self._queue:
             return 0
-        if len(self._queue) >= self.slo.max_batch_requests:
-            return self.step()
-        oldest = min(t.submitted_us for t in self._queue)
-        if self._now_us() - oldest >= self.slo.max_delay_us:
-            self.metrics.counter("delay_bound_dispatches").add(1)
-            return self.step()
-        return 0
+        with traced(self.session.trace, "serve_poll", "poll"):
+            if len(self._queue) >= self.slo.max_batch_requests:
+                return self.step()
+            oldest = min(t.submitted_us for t in self._queue)
+            if self._now_us() - oldest >= self.slo.max_delay_us:
+                self.metrics.counter("delay_bound_dispatches").add(1)
+                return self.step()
+            return 0
 
     # -- completion ----------------------------------------------------------
     def _completed(self, ticket: QueryTicket) -> None:

@@ -98,6 +98,12 @@ def test_quick_workload_matches_reference(tmp_path):
     # serving audit passes on the port's export
     spans = [s for s in port.trace.wall_spans if s.category == "serve"]
     assert sorted(s.args["rid"] for s in spans) == [t.rid for t in p_tickets]
+    # one span a batch, whose rids are its tickets'; no admission instants
+    steps = [s for s in port.trace.wall_spans if s.category == "serve_step"]
+    assert len(steps) == got["batches"]
+    assert sorted(r for s in steps for r in s.args["rids"]) == \
+        [t.rid for t in p_tickets]
+    assert not any(e["name"] == "admit" for e in port.trace.instants)
     assert check_trace(port.trace.export(str(tmp_path / "serve.json")))
 
     # with the JAX arena's rows the words equal the JAX engine's
