@@ -474,6 +474,64 @@ def check_by_pointer(gen: torch.Generator) -> int:
     return err
 
 
+def shard_tables(gen: torch.Generator, shards: list, rows: int,
+                 n: int):
+    """``n`` slot tables of ``rows`` out-of-order slots each, table ``i``
+    over ``shards[i % 2]`` (a :class:`Rows`: what the executor passes the
+    sense kernels in place of a gathered stack)."""
+    from repro_torch.kernels.rows import Rows
+
+    bufs = [shards[i % len(shards)] for i in range(n)]
+    return Rows(bufs, [torch.randperm(b.shape[0], generator=gen,
+                                      device="cuda")[:rows].to(torch.int32)
+                       for b in bufs])
+
+
+def check_tables(gen: torch.Generator, cases) -> dict:
+    """The three sense kernels reading two shards through out-of-order
+    slot tables (repeated slots too) against their plain versions, which
+    gather the rows first.  Returns the largest word difference per
+    kernel."""
+    from repro_torch.kernels import fused, mlc_sense
+    from repro_torch.kernels.rows import Rows
+
+    shards = [torch.randn(13, COLS, generator=gen, device="cuda") * 2 + 2,
+              torch.randn(7, COLS, generator=gen, device="cuda") * 2 + 2]
+    errs = {"mlc_sense": 0, "sense_reduce": 0, "sense_reduce_popcount": 0}
+    rows = shard_tables(gen, shards, 5, 3)
+    rows = Rows(rows.bufs, [rows.slots[0], rows.slots[1],
+                            rows.slots[0].flip(0)])          # repeats a row
+    dense = rows.gather().reshape(3, 5, COLS)
+    mask = random_words(gen, (5, COLS // 32))
+    for kind, refs, n_refs in cases:
+        for invert in (False, True):
+            got = mlc_sense.mlc_sense(rows, refs, kind=kind, invert=invert,
+                                      n_refs=n_refs)
+            want = mlc_sense.reference(dense.reshape(15, COLS), refs, kind,
+                                       invert, n_refs)
+            errs["mlc_sense"] = max(errs["mlc_sense"], word_err(got, want))
+            for op in ("and", "or", "xor"):
+                args = dict(kind=kind, sense_invert=not invert, op=op,
+                            invert=invert, n_refs=n_refs)
+                got = fused.sense_reduce(rows, refs, **args)
+                want = fused.reference(dense, refs, kind, not invert, op,
+                                       invert, n_refs)
+                errs["sense_reduce"] = max(errs["sense_reduce"],
+                                           word_err(got, want))
+                got = fused.sense_reduce_popcount(rows, refs, mask, **args)
+                want = fused.reference_popcount(dense, refs, mask, kind,
+                                                not invert, op, invert, n_refs)
+                errs["sense_reduce_popcount"] = max(
+                    errs["sense_reduce_popcount"], word_err(got, want))
+    # more tables than one launch takes: mlc_sense runs them in launches
+    many = shard_tables(gen, shards, 2, 40)
+    got = mlc_sense.mlc_sense(many, [1.9], kind="lsb", n_refs=1)
+    want = mlc_sense.reference(many.gather(), [1.9], "lsb", False, 1)
+    errs["mlc_sense"] = max(errs["mlc_sense"], word_err(got, want))
+    sync()
+    return errs
+
+
 def check_kernels(gen: torch.Generator) -> dict:
     from repro_torch.kernels import bitops, fused, mlc_sense, popcount
 
@@ -522,6 +580,10 @@ def check_kernels(gen: torch.Generator) -> dict:
     extra.manual_seed(1)
     errs["bitwise_reduce"] = max(errs["bitwise_reduce"],
                                  check_by_pointer(extra))
+    tables = torch.Generator(device="cuda")
+    tables.manual_seed(3)
+    for name, err in check_tables(tables, cases).items():
+        errs[name] = max(errs[name], err)
     for shape in ((1, COLS // 32), (5, COLS // 32), (8, 130), (3, 2 * 1024 * 1024)):
         words = random_words(gen, shape)
         words[0, : min(shape[1], 7)] = -1                 # all-ones words
@@ -569,6 +631,13 @@ def time_kernels(gen: torch.Generator, errs: dict, fused_n: int,
     wide_mask = random_words(extra, POPCOUNT_WIDE)
     n_wide = wide.numel()
     leaf = [random_words(extra, (DELTA_LEAF_WORDS,)) for _ in range(2)]
+    # the sense kernels as the executor calls them: rows read in place from
+    # two arena-like shards through out-of-order slot tables
+    shards = [torch.randn((fused_n + 1) // 2 * rows + rows, COLS,
+                          generator=extra, device="cuda") * 2 + 2
+              for _ in range(2)]
+    group = shard_tables(extra, shards, rows // 2, 2)
+    chain = shard_tables(extra, shards, rows, fused_n)
     lsb = KIND_REFS["lsb"]
     cell_bytes = 4 + 1 / 8
     # name -> (kernel, plain, library or None, bytes, operations, iters)
@@ -591,6 +660,27 @@ def time_kernels(gen: torch.Generator, errs: dict, fused_n: int,
             lambda: fused.reference_popcount(stack, lsb, mask, "lsb", False,
                                              "and", False, 1),
             None, fused_n * rows * COLS * 4 + rows * COLS / 8 + rows * 4,
+            fused_n * rows * COLS * 2 + rows * COLS, 5),
+        "mlc_sense, tables": (
+            lambda: mlc_sense.mlc_sense(group, lsb, kind="lsb", n_refs=1),
+            lambda: mlc_sense.reference(group.gather(), lsb, "lsb", False, 1),
+            None, rows * COLS * cell_bytes + rows * 4,
+            rows * COLS * KIND_COMPARES["lsb"], 20),
+        "sense_reduce, tables": (
+            lambda: fused.sense_reduce(chain, lsb, kind="lsb",
+                                       sense_invert=False, op="and", n_refs=1),
+            lambda: fused.reference(chain.gather().reshape(fused_n, rows, -1),
+                                    lsb, "lsb", False, "and", False, 1),
+            None, fused_n * rows * (COLS * 4 + 4) + rows * COLS / 8,
+            fused_n * rows * COLS * 2, 5),
+        "sense_reduce_popcount, tables": (
+            lambda: fused.sense_reduce_popcount(chain, lsb, mask, kind="lsb",
+                                                sense_invert=False, op="and",
+                                                n_refs=1),
+            lambda: fused.reference_popcount(
+                chain.gather().reshape(fused_n, rows, -1), lsb, mask, "lsb",
+                False, "and", False, 1),
+            None, fused_n * rows * (COLS * 4 + 4) + rows * COLS / 8 + rows * 4,
             fused_n * rows * COLS * 2 + rows * COLS, 5),
         "bitwise_reduce": (
             lambda: bitops.bitwise_reduce(pair, op="or"),
@@ -655,7 +745,7 @@ def time_kernels(gen: torch.Generator, errs: dict, fused_n: int,
         and_first_ms=time_ms(lambda: popcount.popcount_rows(flat & tail), 50),
         and_first_device_ms=dev["ms"], and_first_ops_per_call=dev["ops"])
     out["host_enqueue_us"] = host_split(pair, flat, tail)
-    del leaf, wide, wide_mask
+    del leaf, wide, wide_mask, shards, group, chain
     torch.cuda.empty_cache()
     return out
 
@@ -879,10 +969,20 @@ def recording(backend):
     """While the block runs, keep the inputs and output of the first call of
     each kernel at each read plan that ``backend`` makes, count every call
     per kernel and note the current CUDA stream of each (a
-    :class:`Recording`)."""
+    :class:`Recording`).  Rows read in place (:class:`Rows`) are kept as
+    the dense copy the plain versions take, made at the call: a later
+    program may rewrite the arena rows they point at."""
     from repro_torch.core.mcflash import ReadPlan
+    from repro_torch.kernels.rows import Rows
 
     rec = Recording()
+
+    def frozen(a, name):
+        if not isinstance(a, Rows):
+            return a
+        dense = a.gather()
+        return dense if name == "mlc_sense" else dense.reshape(
+            len(a), -1, a.cols)
 
     def wrap(method: str, name: str):
         real = getattr(backend, method)
@@ -897,7 +997,8 @@ def recording(backend):
             # apart from one that allocates its output
             key = (name, plan, kwargs.get("out") is not None)
             if key not in rec.calls:
-                rec.calls[key] = (args, kwargs, out.clone())
+                rec.calls[key] = (tuple(frozen(a, name) for a in args),
+                                  kwargs, out.clone())
             return out
         return call
 

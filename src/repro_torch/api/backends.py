@@ -17,6 +17,11 @@ import torch
 
 from repro_torch.core.mcflash import ReadPlan
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.rows import Rows
+
+#: Vth a sense reads: a dense tensor, or rows read in place through slot
+#: tables
+Vth = Union[torch.Tensor, Rows]
 
 
 class Backend:
@@ -26,8 +31,9 @@ class Backend:
         #: ``"cuda"`` (the CUDA kernels) or ``"sim"`` (the plain versions)
         self.name = "cuda" if torch.device(device).type == "cuda" else "sim"
 
-    def sense(self, vth: torch.Tensor, plan: ReadPlan) -> torch.Tensor:
-        """(R, C) Vth + read plan -> (R, C//32) packed int32."""
+    def sense(self, vth: Vth, plan: ReadPlan) -> torch.Tensor:
+        """R Vth rows ((R, C) or :class:`Rows`, read in table order) + read
+        plan -> (R, C//32) packed int32."""
         return kops.sense_plan(vth, plan)
 
     def reduce(self, operands: Union[torch.Tensor, Sequence[torch.Tensor]],
@@ -43,14 +49,16 @@ class Backend:
         (R,) int32 bit counts."""
         return kops.popcount_rows(words, mask)
 
-    def sense_reduce(self, vth: torch.Tensor, plan: ReadPlan, *, op: str,
+    def sense_reduce(self, vth: Vth, plan: ReadPlan, *, op: str,
                      invert: bool = False) -> torch.Tensor:
-        """Fused chain: (N, R, C) same-plan Vth -> (R, C//32) packed."""
+        """Fused chain: N same-plan operands of R rows ((N, R, C), or
+        :class:`Rows` with one table per operand) -> (R, C//32) packed."""
         return kops.sense_reduce_plan(vth, plan, op=op, invert=invert)
 
-    def sense_reduce_popcount(self, vth: torch.Tensor, plan: ReadPlan,
+    def sense_reduce_popcount(self, vth: Vth, plan: ReadPlan,
                               mask: torch.Tensor, *, op: str,
                               invert: bool = False) -> torch.Tensor:
-        """Fused chain + masked popcount: (N, R, C) Vth -> (R,) int32."""
+        """Fused chain + masked popcount: N operands of R rows -> (R,)
+        int32."""
         return kops.sense_reduce_popcount_plan(vth, plan, mask, op=op,
                                                invert=invert)

@@ -30,7 +30,7 @@ DAG into a static :class:`ExecPlan`, exactly as the JAX package does:
 Every lowered plan passes the session's static verifier
 (:mod:`repro_torch.verify`) before any dispatch; with a tracer attached the
 executor records lowering, verification, ledger accounting, runner build
-and dispatch (the Vth gathers and the runner's launches inside it) as
+and dispatch (the slot-table lookups and the runner's launches inside it) as
 wall-clock spans, serving batches' spans tagged with their request ids,
 and runner-cache evictions as instants.  Cache hits and misses are the
 cache's own ``hits``/``misses`` counters; a miss is also a ``compile``
@@ -50,6 +50,7 @@ from repro_torch.api.graph import ASSOCIATIVE, BASE_OF, Leaf, Node, Op
 from repro_torch.core import tlc as _tlc
 from repro_torch.core.mcflash import ReadPlan
 from repro_torch.flash.device import PAGE_READ_OP
+from repro_torch.kernels.rows import Rows
 from repro_torch.obs.trace import traced
 from repro_torch.verify.invariants import check_overlap_consistency
 
@@ -70,6 +71,8 @@ class SenseItem:
     """One logical sense/read: all pages of one stored vector."""
     pid: int                      # partial id its packed result binds to
     name: str                     # vector whose pages are sensed
+    #: the stored vector's own page list (not a copy: the device's slot
+    #: tables are cached per list)
     wls: List[WordlineKey]
     plan: ReadPlan
     op_label: str                 # timing/energy op label
@@ -100,6 +103,9 @@ class FusedSpec:
     pass_operands: int = 1
     #: owning serving-request ids (attribution only, never keyed on)
     rids: Tuple[int, ...] = ()
+    #: each operand's page list (its item's ``wls``), whose slot table the
+    #: kernel reads it through
+    operands: Tuple[List[WordlineKey], ...] = ()
 
 
 @dataclasses.dataclass
@@ -127,7 +133,7 @@ class CombineStep:
 @dataclasses.dataclass
 class SenseGroup:
     """All non-fused senses sharing one (ReadPlan, die): ONE batched kernel
-    call gathering ONE arena shard."""
+    call reading ONE arena shard, through its items' slot tables in order."""
     plan: ReadPlan
     op_label: str
     is_mcflash: bool
@@ -201,7 +207,7 @@ class ExecPlan:
     def signature(self, backend_name: str) -> tuple:
         """Hashable shape of the plan: everything the executable closes over
         (structure, plans, page counts, die *topology*, wave layout) minus
-        the runtime inputs (arena shard gathers, mask) — the
+        the runtime inputs (the units' arena rows, mask) — the
         ExecutableCache key.
 
         Physical die ids are normalized to first-appearance order: the
@@ -294,7 +300,7 @@ class _Lowering:
     def _item(self, name: str, wls: List[WordlineKey], plan: ReadPlan,
               op_label: str, is_mcflash: bool, which: str | None = None) -> int:
         pid = self._pid(len(wls))
-        self.items.append(SenseItem(pid, name, list(wls), plan, op_label,
+        self.items.append(SenseItem(pid, name, wls, plan, op_label,
                                     is_mcflash, which, self._dies_of(wls)))
         return pid
 
@@ -535,7 +541,8 @@ class _Lowering:
                                  dies=dies,
                                  pass_operands=min(
                                      len(its),
-                                     self.session.executor.max_fused_operands))
+                                     self.session.executor.max_fused_operands),
+                                 operands=tuple(it.wls for it in its))
             consumed.update(it.pid for it in its)
         if consumed:
             self.items = [it for it in self.items if it.pid not in consumed]
@@ -727,26 +734,56 @@ class Executor:
             tracer.instant("cache", "executable-evicted",
                            evicted=self.cache.evictions - evictions0)
         dev = sess.device
-        # the shard gathers run outside the cached runner, one per die shard;
-        # placed, a die-local gather stays on its shard's stream
-        place = layout is None
         with traced(tracer, "dispatch", "dispatch-waves",
                     waves=len(plan.waves)) as span:
             if span is not None and rids is not None:
                 span.args["rids"] = list(rids)
+            # the runner's inputs: per unit, the arena rows it senses in
+            # place (shard buffers read now, slot tables cached per page
+            # list), made outside the cached runner
             with traced(tracer, "gather", "vth-gather") as span:
-                group_vth = tuple(dev.vth_stack(g.wls, place=place)
-                                  for g in plan.groups)
-                fused_vth = tuple(dev.vth_stack(st.fused.wls, place=place)
-                                  for st in plan.steps
-                                  if st.fused is not None)
+                builds, reuses = dev.slot_table_builds, dev.slot_table_reuses
+                group_rows, fused_rows = self.unit_rows(plan, layout)
+                built = dev.slot_table_builds - builds
+                sess.metrics.counter("slot_table_builds").add(built)
+                sess.metrics.counter("slot_table_reuses").add(
+                    dev.slot_table_reuses - reuses)
                 if span is not None:
                     span.args["wordlines"] = sum(
-                        len(v) for v in group_vth + fused_vth)
+                        r.n_rows for r in group_rows + fused_rows)
+                    span.args["tables_built"] = built
             masks = tuple(sess.tail_mask(nb, w) for nb, w
                           in zip(n_bits_list, plan.all_root_words))
             with traced(tracer, "launch", "run-waves"):
-                return fn(group_vth, fused_vth, masks)
+                return fn(group_rows, fused_rows, masks)
+
+    def unit_rows(self, plan: ExecPlan, layout: Optional[tuple]
+                   ) -> Tuple[Tuple[Rows, ...], Tuple[Rows, ...]]:
+        """Per sense group and per fused step, the rows it senses: its page
+        lists' slot tables over their shards' buffers (a group's items in
+        order; one table per fused operand).  Unplaced, and for a cross-die
+        placed unit, the compute device reads them (gathered there only
+        where a shard lives on another card); a single-die placed unit
+        reads them in place on its shard's device, handed to its stream."""
+        dev = self.session.device
+        fused = [st.fused for st in plan.steps if st.fused is not None]
+        units = ([[it.wls for it in g.items] for g in plan.groups]
+                 + [f.operands for f in fused])
+        slots = ([None] * len(units) if layout is None
+                 else [slot for _, slot in layout[0] + layout[1]])
+        out = []
+        for lists, slot in zip(units, slots):
+            rows = Rows.cat([dev.vth_rows(wls, place=slot is None)
+                             for wls in lists])
+            dev.arena.lend(slot, rows.bufs + rows.slots)
+            out.append(rows)
+        n = len(plan.groups)
+        for f, rows in zip(fused, out[n:]):
+            if len(rows) != f.n_operands:
+                raise ValueError(f"a fused operand's pages span dies: "
+                                 f"{len(rows)} tables for {f.n_operands} "
+                                 "operands")
+        return tuple(out[:n]), tuple(out[n:])
 
     def _account(self, plan: ExecPlan, placed: bool = False,
                  attributed: bool = False) -> None:
@@ -840,13 +877,15 @@ class Executor:
     def _build(self, plan: ExecPlan, popcounts: Tuple[bool, ...],
                layout: Optional[tuple]):
         """Close an eager wave runner over the static plan.  Runtime
-        inputs: the gathered per-group / per-fused-step Vth stacks and one
-        packed padding mask per batch root.  Returns a tuple of outputs,
-        one per root.  Building it counts as the one trace.
+        inputs: per sense group and per fused step the :class:`Rows` it
+        senses in place (:meth:`unit_rows`: shard buffers and slot tables,
+        one table per fused operand), and one packed padding mask per batch
+        root.  Returns a tuple of outputs, one per root.  Building it counts
+        as the one trace.
 
         Placed (``layout`` from :meth:`_placement_layout`), each single-die
-        sense group and fused step is issued on its shard's stream, where
-        its rows were gathered, and the next unit is issued without
+        sense group and fused step is issued on its shard's stream, which
+        reads its rows in place, and the next unit is issued without
         waiting, so die-disjoint units of a wave may overlap on the card; a
         cross-die unit runs on the compute stream.  After a wave's units,
         one event per stream marks them; partials reach the compute stream
@@ -876,10 +915,10 @@ class Executor:
             group_slot = [slot for _, slot in layout[0]]
             fused_slot = dict(zip(fused_pos, (slot for _, slot in layout[1])))
 
-        def fused_reduce(st: CombineStep, vth: torch.Tensor) -> torch.Tensor:
+        def fused_reduce(st: CombineStep, vth: Rows) -> torch.Tensor:
             return _fused_reduce(backend, max_ops, st, vth)
 
-        def run(group_vth, fused_vth, masks):
+        def run(group_rows, fused_rows, masks):
             partials: Dict[int, torch.Tensor] = {}
             events: Dict[int, object] = {}    # pid -> event after its producer
             for wave in plan.waves:
@@ -888,7 +927,7 @@ class Executor:
                     g = plan.groups[gi]
                     slot = group_slot[gi]
                     with on_slot(slot):
-                        packed = backend.sense(group_vth[gi], g.plan)
+                        packed = backend.sense(group_rows[gi], g.plan)
                     for pid, (s, e) in g.spans():
                         partials[pid] = packed[s:e].reshape(-1)
                         made.setdefault(slot, []).append(pid)
@@ -896,8 +935,7 @@ class Executor:
                     st = plan.steps[si]
                     f = st.fused
                     slot = fused_slot[si]
-                    vth = fused_vth[fused_pos[si]].reshape(
-                        f.n_operands, f.n_pages, -1)
+                    vth = fused_rows[fused_pos[si]]
                     if fuse_pc and st.out == plan.root:
                         mask = colocate(masks[0], slot)
                         with on_slot(slot):
@@ -959,9 +997,9 @@ def _fused_positions(plan: ExecPlan) -> Dict[int, int]:
 
 
 def _fused_reduce(backend, max_ops: int, st: CombineStep,
-                  vth: torch.Tensor) -> torch.Tensor:
+                  vth: Rows) -> torch.Tensor:
     """Fused sense->reduce, split into passes of ``max_ops`` operands when
-    the stack holds more."""
+    the chain has more (``vth[s:e]`` takes operands ``s..e-1``)."""
     f = st.fused
     if f.n_operands <= max_ops:
         return backend.sense_reduce(vth, f.plan, op=st.op, invert=st.invert)

@@ -65,6 +65,8 @@ _SESSION_COUNTERS = (
     ("coalesced_sense_groups", "batch sense groups shared by >1 request"),
     ("waves_shared", "schedule waves carrying work of >1 request"),
     ("tail_mask_evictions", "tail-mask cache entries evicted (LRU bound)"),
+    ("slot_table_builds", "page lists' slot tables built for in-place senses"),
+    ("slot_table_reuses", "dispatch lookups that found a current slot table"),
 )
 
 #: per-shape tail-mask cache bound
@@ -461,6 +463,8 @@ class ComputeSession:
             "megakernel_calls": self.megakernel_calls,
             "tiled_megakernel_splits": self.tiled_megakernel_splits,
             "placed_unit_dispatches": self.placed_unit_dispatches,
+            "slot_table_builds": self.slot_table_builds,
+            "slot_table_reuses": self.slot_table_reuses,
             "host_drain": {"submits": self.host_drain_submits,
                            "blocks": self.host_drain_blocks,
                            "pending": len(self.host_queue),

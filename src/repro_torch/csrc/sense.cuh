@@ -7,6 +7,12 @@
 // 128-byte access per warp, and no re-layout is needed. The word kernels
 // (bitops.cu, popcount.cu) take 16-byte loads where their inputs are aligned.
 //
+// The sense kernels read Vth rows where they live: an operand is a base
+// pointer (an arena shard's buffer, or a dense stack) and a device int32 slot
+// table, and row p of operand i starts at base[i] + slots_i[p] * cols. A block
+// covers kBlock words of one row, so it looks up one slot per operand and its
+// loads stay coalesced. A dense stack is one base with the identity table.
+//
 // Every C entry point launches on the caller's stream, does not synchronise,
 // allocates nothing, and returns cudaGetLastError() so the Python wrapper can
 // raise on a launch the CUDA runtime refused.
@@ -25,6 +31,38 @@ constexpr int kBlock = 256;
 
 enum Kind { kLsb = 0, kMsb = 1, kSbr = 2, kParity = 3 };
 enum Op { kAnd = 0, kOr = 1, kXor = 2 };
+
+// Operands (slot tables) one sense launch takes: the executor's
+// MAX_FUSED_OPERANDS, so a fused pass is one launch.
+constexpr int kMaxTables = 32;
+
+// The operands' base pointers and slot tables travel by value in the
+// kernel's parameter space (768 B), as bitops.cu's operand pointers do.
+// `end` (mlc_sense only) holds the cumulative rows through each table: the
+// output rows are the tables' rows in order.
+struct RowTables {
+  const float* base[kMaxTables];
+  const int32_t* slots[kMaxTables];
+  int64_t end[kMaxTables];
+};
+
+inline RowTables load_tables(const float* const* bases,
+                             const int32_t* const* slots, const int64_t* ends,
+                             int n) {
+  RowTables t = {};
+  for (int i = 0; i < n; ++i) {
+    t.base[i] = bases[i];
+    t.slots[i] = slots[i];
+    t.end[i] = ends ? ends[i] : 0;
+  }
+  return t;
+}
+
+// The first row of table i's p-th entry.
+__device__ __forceinline__ const float* table_row(const RowTables& t, int i,
+                                                  int64_t p, int64_t cols) {
+  return t.base[i] + static_cast<int64_t>(__ldg(t.slots[i] + p)) * cols;
+}
 
 // The read references travel by value in the kernel's parameter space: the
 // counterpart of the Pallas kernels' scalar-prefetched reference vector.

@@ -2,11 +2,14 @@
 
 :class:`VthArena` is one preallocated float32 buffer on a torch device plus
 a free-slot allocator: programming a wordline writes one row in place, and
-a batched sense is one ``index_select`` of row indices.
+a sense reads its rows in place, through an int32 table of their slots
+(``FlashDevice.slot_tables``) and the buffer's base pointer, read at
+dispatch since growing a shard replaces its buffer.  :meth:`VthArena.gather`
+copies rows out (``index_select``) for the readers that need a copy.
 
 :class:`ShardedVthArena` keeps one lazily-created :class:`VthArena` per die
 that holds data, addressed by ``(die, slot)`` refs, so the executor's
-per-die sense groups each gather from their own shard.
+per-die sense groups each read their own shard.
 
 ``devices=`` maps shards onto a list of torch devices round-robin (die
 ``d`` on entry ``d % len(devices)``; entries may repeat).  Each CUDA entry
@@ -318,31 +321,27 @@ class ShardedVthArena:
             return x
         return x.to(self.devices[slot])
 
-    def gather(self, refs: Sequence[SlotRef], *,
-               place: bool = True) -> torch.Tensor:
-        """(len(refs), page_bits) rows — one gather per touched shard, in
-        request order.
+    def lend(self, slot: Optional[int], tensors: Sequence[torch.Tensor]) -> None:
+        """Let entry ``slot``'s stream read ``tensors`` (on its device) in
+        place: the stream waits for the work the current stream has queued
+        there (the rows' writes, the tables' copies), and each tensor is
+        marked as used on it.  A no-op without a stream."""
+        s = self.stream(slot)
+        if s is None:
+            return
+        s.wait_stream(torch.cuda.current_stream(s.device))
+        for x in tensors:
+            x.record_stream(s)
 
-        ``place=True`` (the default) lands the rows on the compute device
-        and stream.  ``place=False`` leaves a die-local gather on its own
-        shard's device, issued on that shard's stream after the work the
-        current stream has queued (the rows' writes), so the placed runner
-        senses each die's pages where they live.  Cross-die gathers always
-        concatenate on the compute device."""
+    def gather(self, refs: Sequence[SlotRef]) -> torch.Tensor:
+        """(len(refs), page_bits) copy of rows on the compute device and
+        stream — one gather per touched shard, in request order.  The senses
+        read in place; this copy serves rows that live on another card."""
         refs = list(refs)
         dies = {int(d) for d, _ in refs}
         if len(dies) == 1:
-            die = dies.pop()
-            shard = self.shard(die)
-            slots = [s for _, s in refs]
-            s = None if place else self.stream(self.slot_of(die))
-            if s is None:
-                local = shard.gather(slots)
-                return local.to(self.device) if place else local
-            s.wait_stream(torch.cuda.current_stream(shard.device))
-            with torch.cuda.stream(s):
-                shard.buf.record_stream(s)
-                return shard.gather(slots)
+            return self.shard(dies.pop()).gather(
+                [s for _, s in refs]).to(self.device)
         by_die: Dict[int, List[int]] = {}
         pos: List[Tuple[int, int]] = []       # (die, index within die gather)
         for die, slot in refs:

@@ -1,8 +1,11 @@
 """Functional simulated NAND flash device.
 
 Per-wordline Vth lives in a die-sharded :class:`ShardedVthArena` on one
-torch device, addressed by ``(die, slot)`` refs, so a batched sense is one
-row gather per touched shard.  Read plans execute through a backend
+torch device, addressed by ``(die, slot)`` refs.  A sense reads its rows
+where they live: per page list, the device keeps an int32 table of the
+rows' slots on their shard's device (:meth:`FlashDevice.slot_tables`), and
+the sense kernels take the shard buffers and those tables
+(:meth:`FlashDevice.vth_rows`).  Read plans execute through a backend
 (the CUDA kernels on a card, the plain versions on the CPU), P/E cycles
 are tracked per block, and the unified :class:`~repro_torch.api.ledger.Ledger`
 (time + energy) is threaded through every command.
@@ -19,7 +22,8 @@ Vth sampling draws from the device's own ``torch.Generator`` (seeded by
 """
 from __future__ import annotations
 
-from typing import Dict, List, Mapping, Optional, Tuple
+from collections import OrderedDict
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -35,12 +39,16 @@ from repro_torch.flash.energy import EnergyModel
 from repro_torch.flash.geometry import SSDConfig
 from repro_torch.flash.timing import TimingModel
 from repro_torch.kernels import ref as kernel_ref
+from repro_torch.kernels.rows import Rows, identity
 from repro_torch.obs.trace import traced
 
 WordlineKey = Tuple[int, int, int]  # (plane, block, wordline)
 
 #: ledger/timing op label for a standard page read of each role
 PAGE_READ_OP = {"lsb": "and", "csb": "or", "msb": "or"}
+
+#: page lists whose slot tables the device keeps (least recently used out)
+SLOT_TABLE_CACHE_CAP = 1024
 
 
 class FlashDevice:
@@ -77,6 +85,14 @@ class FlashDevice:
                                      device=self.device,
                                      devices=shard_devices)
         self._slot_of: Dict[WordlineKey, SlotRef] = {}
+        #: bumped by every change to ``_slot_of``: a slot table built at
+        #: another version is stale
+        self.slot_version = 0
+        # id(page list) -> (the list, version, length, per-die-run tables)
+        self._tables: "OrderedDict[int, tuple]" = OrderedDict()
+        #: slot tables built, and lookups that found a current one
+        self.slot_table_builds = 0
+        self.slot_table_reuses = 0
         # stored page bits per wordline: (one tensor per role, row), role
         # order (2 for MLC/reduced, 3 for TLC)
         self._operands: Dict[WordlineKey,
@@ -110,14 +126,64 @@ class FlashDevice:
         return self.die_of_plane(plane) // self.config.dies_per_channel
 
     # -- arena access (the executor's input surface) --------------------------
-    def vth_stack(self, wls: List[WordlineKey], *,
-                  place: bool = True) -> torch.Tensor:
-        """(N, page_bits) Vth of a wordline batch — one gather per touched
-        die shard.  ``place=False`` leaves a die-local gather on its
-        shard's device and stream (the placed runner); the default lands
-        it on the compute device and stream."""
-        return self.arena.gather([self._slot_of[wl] for wl in wls],
-                                 place=place)
+    def slot_tables(self, wls: Sequence[WordlineKey]
+                    ) -> Tuple[Tuple[int, torch.Tensor], ...]:
+        """``(die, int32 slot table)`` per run of one die in a wordline
+        list, each table on its die shard's device: the rows a sense reads
+        in place.  Built once per list object (a stored vector's page list)
+        and reused while no slot has changed since (:attr:`slot_version`);
+        a shard's growth moves its buffer, not its slots, so the tables
+        outlive it.  A list is taken as never changed in place, as the
+        FTL's page lists are."""
+        hit = self._tables.get(id(wls))
+        if (hit is not None and hit[0] is wls
+                and hit[1] == self.slot_version and hit[2] == len(wls)):
+            self._tables.move_to_end(id(wls))
+            self.slot_table_reuses += 1
+            return hit[3]
+        runs: List[Tuple[int, List[int]]] = []
+        for wl in wls:
+            die, slot = self._slot_of[wl]
+            if runs and runs[-1][0] == die:
+                runs[-1][1].append(slot)
+            else:
+                runs.append((die, [slot]))
+        tables = tuple(
+            (die, torch.tensor(slots, dtype=torch.int32,
+                               device=self.arena.shard(die).device))
+            for die, slots in runs)
+        self._tables[id(wls)] = (wls, self.slot_version, len(wls), tables)
+        self._tables.move_to_end(id(wls))
+        while len(self._tables) > SLOT_TABLE_CACHE_CAP:
+            self._tables.popitem(last=False)
+        self.slot_table_builds += 1
+        return tables
+
+    def vth_rows(self, wls: Sequence[WordlineKey], *,
+                 place: bool = True) -> Rows:
+        """The Vth rows of a wordline list where they live, for the sense
+        kernels: per run of one die, that shard's buffer (read now: a
+        grown shard has a new one) and its cached slot table.
+
+        ``place=True`` (the default) gives rows the compute device reads:
+        in place where every run's shard lives on it, else gathered there
+        (:meth:`vth_stack`: one card cannot read another's rows in place).
+        ``place=False`` reads in place on the shards' own device (the
+        placed runner, which hands them to the shard's stream)."""
+        tables = self.slot_tables(wls)
+        arena = self.arena
+        if place and arena.devices and any(
+                arena.device_of(die) != self.device for die, _ in tables):
+            return identity(self.vth_stack(wls))
+        return Rows([arena.shard(die).buf for die, _ in tables],
+                    [t for _, t in tables])
+
+    def vth_stack(self, wls: Sequence[WordlineKey]) -> torch.Tensor:
+        """(N, page_bits) copy of a wordline batch's Vth on the compute
+        device and stream — one gather per touched die shard.  The senses
+        read in place (:meth:`vth_rows`); this copy serves rows on another
+        card than the compute device, and inspection."""
+        return self.arena.gather([self._slot_of[wl] for wl in wls])
 
     def load_vth(self, rows_by_die: Mapping[int, np.ndarray]) -> None:
         """Load per-die Vth rows exported from a reference arena's shards
@@ -211,6 +277,7 @@ class FlashDevice:
                     (slot,) = self.arena.alloc(self.die_of_plane(wl[0]), 1,
                                                encoding=encoding)
                     self._slot_of[wl] = slot
+                    self.slot_version += 1
                 elif self.arena.encoding_of(slot) != encoding:
                     # reprogram under a different encoding reuses the slot
                     self.arena.retag(slot, encoding)
@@ -331,7 +398,7 @@ class FlashDevice:
             plan = self.plans.get(op, self.chip)
         self.account_mcflash_batch(wls, op, switch_op=switch_op,
                                    phases=plan.sensing_phases)
-        return self.backend.sense(self.vth_stack(wls), plan)
+        return self.backend.sense(self.vth_rows(wls), plan)
 
     def mcflash_read(self, wl: WordlineKey, op: str, packed: bool = True,
                      switch_op: bool = True, *,
@@ -363,7 +430,7 @@ class FlashDevice:
             raise ValueError("empty wordline batch")
         plan = self.page_read_plan(which, encoding)
         self.account_page_read_batch(wls, which, phases=plan.sensing_phases)
-        return self.backend.sense(self.vth_stack(wls), plan)
+        return self.backend.sense(self.vth_rows(wls), plan)
 
     def page_read(self, wl: WordlineKey, which: str = "lsb",
                   packed: bool = True, *, encoding: str = tlc.MLC) -> torch.Tensor:
@@ -388,9 +455,9 @@ class FlashDevice:
         plan_a = self.page_read_plan(which_a)
         plan_b = self.page_read_plan(which_b)
         bits_a = kernel_ref.unpack_bits(
-            self.backend.sense(self.vth_stack(srcs_a), plan_a))
+            self.backend.sense(self.vth_rows(srcs_a), plan_a))
         bits_b = kernel_ref.unpack_bits(
-            self.backend.sense(self.vth_stack(srcs_b), plan_b))
+            self.backend.sense(self.vth_rows(srcs_b), plan_b))
         # the sensed bits are the device's own: they are the records too
         self._program_rows(dsts, list(bits_a), list(bits_b),
                            records=(bits_a, bits_b))
@@ -405,6 +472,8 @@ class FlashDevice:
         self.pe_counts[(plane, block)] = self.pe_counts.get((plane, block), 0) + 1
         stale = [k for k in self._slot_of if k[0] == plane and k[1] == block]
         self.arena.free([self._slot_of.pop(wl) for wl in stale])
+        if stale:
+            self.slot_version += 1
         for wl in stale:
             self._operands.pop(wl, None)
             self._encoding_of.pop(wl, None)

@@ -5,6 +5,8 @@ plain PyTorch version.
 - ``fused``: sense -> reduce (-> popcount) megakernels (``csrc/fused.cu``).
 - ``bitops``: and/or/xor folds of operands passed by pointer (``csrc/bitops.cu``).
 - ``popcount``: per-row popcount, optionally masked (``csrc/popcount.cu``).
+- ``rows``: the sense kernels' operand form, Vth rows read in place through
+  int32 slot tables (a dense stack takes the identity table).
 - ``ops``: plan-level entry points the backends call.
 - ``ref``: the plain versions and the packing convention.
 - ``cuda``: the nvcc build, ctypes loading and launch counts.

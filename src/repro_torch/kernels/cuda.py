@@ -48,11 +48,12 @@ OP_CODE = {"and": 0, "or": 1, "xor": 2}
 
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _SIGNATURES = {
-    "mcf_mlc_sense": ("mlc_sense", [_P, _P, _I64, _I64, _I, _I, _I, _P, _P]),
-    "mcf_sense_reduce": ("fused", [_P, _P, _I64, _I64, _I64, _I, _I, _I, _I,
-                                   _I, _P, _P]),
-    "mcf_sense_reduce_popcount": ("fused", [_P, _P, _P, _I64, _I64, _I64, _I,
-                                            _I, _I, _I, _I, _P, _P]),
+    "mcf_mlc_sense": ("mlc_sense", [_P, _P, _P, _I, _P, _I64, _I64, _I, _I,
+                                    _I, _P, _P]),
+    "mcf_sense_reduce": ("fused", [_P, _P, _I, _P, _I64, _I64, _I, _I, _I,
+                                   _I, _I, _P, _P]),
+    "mcf_sense_reduce_popcount": ("fused", [_P, _P, _I, _P, _P, _I64, _I64,
+                                            _I, _I, _I, _I, _I, _P, _P]),
     "mcf_bitwise_reduce": ("bitops", [_P, _I, _P, _I64, _I, _I, _P]),
     "mcf_popcount_rows": ("popcount", [_P, _P, _P, _I64, _I64, _P]),
 }
@@ -63,6 +64,14 @@ MAX_OPERANDS = 64
 #: the host array of operand pointers the entry point copies into its
 #: kernel-parameter struct
 Pointers = _P * MAX_OPERANDS
+
+
+#: slot tables one sense launch takes (``kMaxTables`` in ``csrc/sense.cuh``)
+MAX_TABLES = 32
+#: the host arrays of base pointers, slot-table pointers and row ends the
+#: sense entry points copy into their kernel-parameter struct
+TablePointers = _P * MAX_TABLES
+TableEnds = _I64 * MAX_TABLES
 
 
 def reset_launches() -> None:
@@ -171,6 +180,27 @@ def sense_args(refs: Sequence[float], kind: str,
                          f"references, got {len(vals)}")
     padded = (ctypes.c_float * MAX_REFS)(*vals, *([0.0] * (MAX_REFS - len(vals))))
     return KIND_CODE[kind], n_refs, padded
+
+
+def table_args(rows) -> tuple[ctypes.Array, ctypes.Array]:
+    """(base pointers, slot-table pointers) of
+    :class:`~repro_torch.kernels.rows.Rows` on the card, at most
+    :data:`MAX_TABLES` tables; raises on a buffer or table of the wrong
+    kind."""
+    dev, cols = rows.device, rows.cols
+    bases, slots = [], []
+    for buf, table in zip(rows.bufs, rows.slots):
+        if not (buf.is_cuda and buf.dtype == torch.float32
+                and buf.is_contiguous() and buf.device == dev
+                and buf.shape[1] == cols):
+            raise ValueError("row buffers must be contiguous float32 (slots, "
+                             f"{cols}) tensors on {dev}")
+        if not (table.dtype == torch.int32 and table.is_contiguous()
+                and table.device == dev):
+            raise ValueError(f"slot tables must be contiguous int32 on {dev}")
+        bases.append(buf.data_ptr())
+        slots.append(table.data_ptr())
+    return TablePointers(*bases), TablePointers(*slots)
 
 
 def check_cuda(name: str, t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:

@@ -15,25 +15,39 @@ Hopper's blocks run in no order, so this replaces the Pallas kernel's
 accumulator carried along its sequential grid.  The Pallas column tiling
 (``_auto_col_tiles``) was a VMEM heuristic and has no counterpart here.
 
-On CPU tensors the wrappers run the plain versions, :data:`reference` and
-:data:`reference_popcount`.
+Each operand's R rows are read where they live, through its slot table
+(:class:`Rows`, one table per operand, at most ``cuda.MAX_TABLES``
+operands, the executor's ``MAX_FUSED_OPERANDS``); a dense (N, R, C) stack
+is one base with the identity table.
+
+On the CPU the wrappers run the plain versions, :data:`reference` and
+:data:`reference_popcount`, on the rows gathered by their tables.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Sequence, Union
 
 import torch
 
 from repro_torch.kernels import cuda, ref
 from repro_torch.kernels.ref import TILE_COLS, WORD_BITS
+from repro_torch.kernels.rows import Rows, identity
 
 #: the plain PyTorch versions of these kernels
 reference = ref.sense_reduce
 reference_popcount = ref.sense_reduce_popcount
 
+Operands = Union[torch.Tensor, Rows]
 
-def _check_shape(vth: torch.Tensor) -> tuple[int, int, int]:
-    n, r, c = vth.shape
+
+def _check_shape(vth: Operands) -> tuple[int, int, int]:
+    if isinstance(vth, torch.Tensor):
+        n, r, c = vth.shape
+    else:
+        n, c = len(vth), vth.cols
+        r = int(vth.slots[0].shape[0])
+        if any(int(t.shape[0]) != r for t in vth.slots):
+            raise ValueError("operands' slot tables differ in length")
     if n < 1:
         raise ValueError("need at least one operand")
     if c % TILE_COLS:
@@ -41,42 +55,60 @@ def _check_shape(vth: torch.Tensor) -> tuple[int, int, int]:
     return n, r, c
 
 
-def sense_reduce(vth: torch.Tensor, refs: Sequence[float], *, kind: str,
+def _dense(vth: Operands, n: int, r: int, c: int) -> torch.Tensor:
+    """The (N, R, C) stack the plain versions sense."""
+    return vth if isinstance(vth, torch.Tensor) else vth.gather().reshape(n, r, c)
+
+
+def _tables(vth: Operands, n: int):
+    """Base and slot-table pointers of N operands on the card."""
+    if n > cuda.MAX_TABLES:
+        raise ValueError(f"{n} operands: one launch takes at most "
+                         f"{cuda.MAX_TABLES}; fold wider chains in passes")
+    if isinstance(vth, torch.Tensor):
+        vth = identity(cuda.check_cuda("vth", vth, torch.float32))
+    return cuda.table_args(vth)
+
+
+def sense_reduce(vth: Operands, refs: Sequence[float], *, kind: str,
                  sense_invert: bool, op: str, invert: bool = False,
                  n_refs: int = 0) -> torch.Tensor:
-    """(N, R, C) Vth -> (R, C // 32) int32 words of the folded senses."""
+    """N operands of R Vth rows ((N, R, C) or :class:`Rows`) -> (R, C // 32)
+    int32 words of the folded senses."""
     n, r, c = _check_shape(vth)
     if vth.device.type == "cpu":
-        return reference(vth, list(refs), kind, sense_invert, op, invert,
-                         n_refs=n_refs or None)
-    vth = cuda.check_cuda("vth", vth, torch.float32)
+        return reference(_dense(vth, n, r, c), list(refs), kind, sense_invert,
+                         op, invert, n_refs=n_refs or None)
+    bases, slots = _tables(vth, n)
     out = torch.empty((r, c // WORD_BITS), dtype=torch.int32, device=vth.device)
     if r:
         kind_code, n_refs, refs_c = cuda.sense_args(refs, kind, n_refs)
-        cuda.launch("sense_reduce", "mcf_sense_reduce", vth.data_ptr(),
-                    out.data_ptr(), n, r, c, kind_code, n_refs,
+        cuda.launch("sense_reduce", "mcf_sense_reduce", bases, slots, n,
+                    out.data_ptr(), r, c, kind_code, n_refs,
                     int(sense_invert), cuda.OP_CODE[op], int(invert), refs_c)
     return out
 
 
-def sense_reduce_popcount(vth: torch.Tensor, refs: Sequence[float],
+def sense_reduce_popcount(vth: Operands, refs: Sequence[float],
                           mask: torch.Tensor, *, kind: str, sense_invert: bool,
                           op: str, invert: bool = False,
                           n_refs: int = 0) -> torch.Tensor:
-    """(N, R, C) Vth + (R, C // 32) mask -> (R,) int32 bit counts."""
+    """N operands of R Vth rows + (R, C // 32) mask -> (R,) int32 bit
+    counts."""
     n, r, c = _check_shape(vth)
     if tuple(mask.shape) != (r, c // WORD_BITS):
         raise ValueError(f"mask shape {tuple(mask.shape)} != {(r, c // WORD_BITS)}")
     if vth.device.type == "cpu":
-        return reference_popcount(vth, list(refs), mask, kind, sense_invert,
-                                  op, invert, n_refs=n_refs or None)
-    vth = cuda.check_cuda("vth", vth, torch.float32)
+        return reference_popcount(_dense(vth, n, r, c), list(refs), mask, kind,
+                                  sense_invert, op, invert,
+                                  n_refs=n_refs or None)
+    bases, slots = _tables(vth, n)
     mask = cuda.check_cuda("mask", mask, torch.int32)
     out = torch.zeros((r,), dtype=torch.int32, device=vth.device)
     if r:
         kind_code, n_refs, refs_c = cuda.sense_args(refs, kind, n_refs)
         cuda.launch("sense_reduce_popcount", "mcf_sense_reduce_popcount",
-                    vth.data_ptr(), mask.data_ptr(), out.data_ptr(), n, r, c,
+                    bases, slots, n, mask.data_ptr(), out.data_ptr(), r, c,
                     kind_code, n_refs, int(sense_invert), cuda.OP_CODE[op],
                     int(invert), refs_c)
     return out

@@ -23,8 +23,9 @@ category :attr:`Tracer.totals` keeps count, time and self time):
   its overlap check.
 - ``compile`` (``build-executable``): building a cached wave runner.
 - ``dispatch`` (``dispatch-waves``): a plan's dispatch, holding
-  ``gather`` (``vth-gather``: the host walk of the Vth refs and the
-  gather launches) and ``launch`` (``run-waves``: the runner's launches).
+  ``gather`` (``vth-gather``: each unit's slot-table lookups, the rows
+  the sense kernels read in place; ``tables_built`` counts the tables it
+  built) and ``launch`` (``run-waves``: the runner's launches).
 - ``serve_poll`` (``poll``) and ``serve_step`` (``batch N``): the serving
   engine's batch-formation check and one coalesced batch; ``serve``
   (``request N``): a request's life from admission to its result, marked

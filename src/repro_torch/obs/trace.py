@@ -14,7 +14,7 @@ offset (the sum of earlier step maxima) and whose max end advances it, so
   the host-link lane at ``host_busy_us``; the makespan is their max).
 
 A second clock records *host wall-clock* spans (lowering, verification,
-dispatch, gathers, drains, programming; the categories are listed in
+dispatch, slot-table lookups, drains, programming; the categories are listed in
 :mod:`repro_torch.obs`) via the :meth:`Tracer.span` context manager, plus
 instant events (runner evictions, fused-chain splits).  Wall spans nest on
 the one host thread: each gets a span id (``sid``) and the id of the span

@@ -171,6 +171,8 @@ class ReliabilityManager:
         partials: Dict[int, torch.Tensor] = {}
         fused_pos = {si: k for k, si in enumerate(
             si for si, st in enumerate(plan.steps) if st.fused is not None)}
+        # the rows each unit senses, in place, as the primary dispatch reads
+        group_rows, fused_rows = sess.executor.unit_rows(plan, None)
         for wi, wave in enumerate(plan.waves):
             per_die: Dict[int, float] = {}
             per_ch: Dict[int, float] = {}
@@ -190,7 +192,7 @@ class ReliabilityManager:
             for gi in wave.groups:
                 g = plan.groups[gi]
                 shifted = shift_plan(g.plan, dv) if dv else g.plan
-                packed = backend.sense(dev.vth_stack(g.wls), shifted)
+                packed = backend.sense(group_rows[gi], shifted)
                 for pid, (s, e) in g.spans():
                     partials[pid] = packed[s:e].reshape(-1)
                 book(dev.mcflash_cost(g.wls, g.op_label,
@@ -203,7 +205,7 @@ class ReliabilityManager:
                 st = plan.steps[si]
                 f = st.fused
                 shifted = shift_plan(f.plan, dv) if dv else f.plan
-                vth = dev.vth_stack(f.wls).reshape(f.n_operands, f.n_pages, -1)
+                vth = fused_rows[fused_pos[si]]
                 if f.n_operands <= max_ops:
                     out = backend.sense_reduce(vth, shifted, op=st.op,
                                                invert=st.invert)
@@ -247,7 +249,7 @@ class ReliabilityManager:
         dev.ledger.add_die_batch(per_die, uj, commands=len(meta.pages),
                                  category=category,
                                  label=f"{label} {meta.name}@{dv:+.3f}V")
-        return self.session.backend.sense(dev.vth_stack(meta.pages), plan)
+        return self.session.backend.sense(dev.vth_rows(meta.pages), plan)
 
     @staticmethod
     def _unpack(packed: torch.Tensor, n_bits: int) -> torch.Tensor:

@@ -41,10 +41,11 @@ from typing import Iterator, List, NamedTuple, Optional, Tuple
 
 __all__ = ["Violation", "lint_file", "lint_paths", "main"]
 
-#: packing helpers on the kernels surface that any layer may use
-#: (no kernel launch, no backend-parity concern)
+#: packing helpers and the sense operands' form (``Rows``, ``identity``)
+#: on the kernels surface that any layer may use (no kernel launch, no
+#: backend-parity concern)
 KERNEL_HELPERS = frozenset({"pack_bits", "unpack_bits", "pad_rows",
-                            "pad_refs"})
+                            "pad_refs", "Rows", "identity"})
 #: plan compilers that bypass the encoding-keyed caches when called bare
 PLAN_COMPILERS = frozenset({"plan_op", "pattern_plan", "plan_encoded"})
 #: tensor methods that copy to the host and wait for the device

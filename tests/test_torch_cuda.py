@@ -14,6 +14,7 @@ import torch
 from repro_torch.api.session import ComputeSession
 from repro_torch.flash.geometry import SSDConfig
 from repro_torch.kernels import bitops, cuda, fused, mlc_sense, popcount
+from repro_torch.kernels.rows import Rows
 from repro_torch.serve import QueryEngine, SLOConfig
 
 KIND_CASES = ([("lsb", [1.9]), ("msb", [0.1, 3.7]), ("sbr", [0.1, 3.7, 1.9, 5.5])]
@@ -35,27 +36,41 @@ def _words(gen, shape, device):
 @pytest.mark.gpu
 def test_cuda_kernels_match_plain_versions(card):
     """Every kind x op x inversion, rows not a multiple of 8, bit-31 words:
-    the kernels equal their plain versions bit for bit."""
+    the kernels equal their plain versions bit for bit, on dense stacks
+    (the identity table) and on rows read in place from two shards through
+    out-of-order slot tables with a repeated slot."""
     gen = torch.Generator().manual_seed(0)
     vth = (torch.randn(3, 5, 8192, generator=gen) * 2 + 2).to(card)
     mask = _words(gen, (5, 256), card)
     words = _words(gen, (3, 5, 130), card)
+    shards = [(torch.randn(n, 8192, generator=gen) * 2 + 2).to(card)
+              for n in (11, 7)]
+    tables = [torch.tensor(t, dtype=torch.int32, device=card) for t in
+              ([9, 0, 4, 4, 10], [6, 1, 3, 0, 2], [3, 2, 8, 7, 5])]
+    rows = Rows([shards[0], shards[1], shards[0]], tables)
+    gathered = rows.gather().reshape(3, 5, 8192)
     for (kind, refs), invert in itertools.product(KIND_CASES, (False, True)):
         n_refs = len(refs)
         assert torch.equal(
             mlc_sense.mlc_sense(vth[0], refs, kind=kind, invert=invert,
                                 n_refs=n_refs),
             mlc_sense.reference(vth[0], refs, kind, invert, n_refs))
-        for op in ("and", "or", "xor"):
+        assert torch.equal(
+            mlc_sense.mlc_sense(rows, refs, kind=kind, invert=invert,
+                                n_refs=n_refs),
+            mlc_sense.reference(gathered.reshape(15, -1), refs, kind, invert,
+                                n_refs))
+        for op, stack in itertools.product(("and", "or", "xor"),
+                                           ((vth, vth), (rows, gathered))):
             args = dict(kind=kind, sense_invert=not invert, op=op,
                         invert=invert, n_refs=n_refs)
-            assert torch.equal(fused.sense_reduce(vth, refs, **args),
-                               fused.reference(vth, refs, kind, not invert, op,
-                                               invert, n_refs))
+            assert torch.equal(fused.sense_reduce(stack[0], refs, **args),
+                               fused.reference(stack[1], refs, kind,
+                                               not invert, op, invert, n_refs))
             assert torch.equal(
-                fused.sense_reduce_popcount(vth, refs, mask, **args),
-                fused.reference_popcount(vth, refs, mask, kind, not invert, op,
-                                         invert, n_refs))
+                fused.sense_reduce_popcount(stack[0], refs, mask, **args),
+                fused.reference_popcount(stack[1], refs, mask, kind,
+                                         not invert, op, invert, n_refs))
             assert torch.equal(bitops.bitwise_reduce(words, op=op, invert=invert),
                                bitops.reference(words, op, invert))
     assert torch.equal(popcount.popcount_rows(words[0]),
