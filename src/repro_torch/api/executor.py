@@ -754,7 +754,12 @@ class Executor:
                     span.args["tables_built"] = built
             masks = tuple(sess.tail_mask(nb, w) for nb, w
                           in zip(n_bits_list, plan.all_root_words))
-            with traced(tracer, "launch", "run-waves"):
+            with traced(tracer, "launch", "run-waves") as span:
+                if span is not None:
+                    plans = _unit_plans(plan)
+                    span.args["encoding"] = "+".join(
+                        dict.fromkeys(_encoding_of(p) for p in plans))
+                    span.args["refs"] = [len(p.refs) for p in plans]
                 return fn(group_rows, fused_rows, masks)
 
     def unit_rows(self, plan: ExecPlan, layout: Optional[tuple]
@@ -764,7 +769,15 @@ class Executor:
         order; one table per fused operand).  Unplaced, and for a cross-die
         placed unit, the compute device reads them (gathered there only
         where a shard lives on another card); a single-die placed unit
-        reads them in place on its shard's device, handed to its stream."""
+        reads them in place on its shard's device, handed to its stream.
+
+        Every dispatch of a plan, the runner's and the recovery ladder's
+        shifted walk alike, takes its rows here, so the units sensed under
+        a multi-level encoding and their sensing phases are counted here."""
+        encoded = [p for p in _unit_plans(plan) if _encoding_of(p) != _tlc.MLC]
+        m = self.session.metrics
+        m.counter("encoded_sense_units").add(len(encoded))
+        m.counter("sensing_phases").add(sum(p.sensing_phases for p in encoded))
         dev = self.session.device
         fused = [st.fused for st in plan.steps if st.fused is not None]
         units = ([[it.wls for it in g.items] for g in plan.groups]
@@ -978,6 +991,18 @@ class Executor:
             return tuple(outs)
 
         return run
+
+
+def _unit_plans(plan: ExecPlan) -> List[ReadPlan]:
+    """The read plan of each sense group, then of each fused step."""
+    return [g.plan for g in plan.groups] + [
+        st.fused.plan for st in plan.steps if st.fused is not None]
+
+
+def _encoding_of(plan: ReadPlan) -> str:
+    """The row encoding a read plan senses: encoded plans are parity reads
+    whose op label starts with their encoding (``tlc:and:csb+lsb+msb``)."""
+    return plan.op.partition(":")[0] if plan.kind == "parity" else _tlc.MLC
 
 
 def _root_fuses_popcount(plan: ExecPlan, popcounts: Tuple[bool, ...]) -> bool:

@@ -67,6 +67,8 @@ _SESSION_COUNTERS = (
     ("tail_mask_evictions", "tail-mask cache entries evicted (LRU bound)"),
     ("slot_table_builds", "page lists' slot tables built for in-place senses"),
     ("slot_table_reuses", "dispatch lookups that found a current slot table"),
+    ("encoded_sense_units", "units sensed under a TLC / reduced-MLC plan"),
+    ("sensing_phases", "sensing phases of those encoded units"),
 )
 
 #: per-shape tail-mask cache bound
@@ -465,6 +467,8 @@ class ComputeSession:
             "placed_unit_dispatches": self.placed_unit_dispatches,
             "slot_table_builds": self.slot_table_builds,
             "slot_table_reuses": self.slot_table_reuses,
+            "encoded_sense_units": self.encoded_sense_units,
+            "sensing_phases": self.sensing_phases,
             "host_drain": {"submits": self.host_drain_submits,
                            "blocks": self.host_drain_blocks,
                            "pending": len(self.host_queue),

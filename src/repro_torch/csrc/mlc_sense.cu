@@ -9,7 +9,7 @@
 
 namespace mcf {
 
-template <int KIND>
+template <int KIND, int NREFS = kMaxRefs>
 __global__ void __launch_bounds__(kBlock)
 mlc_sense_kernel(const RowTables tables, int n_tables,
                  uint32_t* __restrict__ out, int64_t words,
@@ -25,7 +25,7 @@ mlc_sense_kernel(const RowTables tables, int n_tables,
   }
   __syncthreads();
   if (wcol >= words) return;
-  out[row * words + wcol] = sense_word<KIND>(src, wcol / kLanes,
+  out[row * words + wcol] = sense_word<KIND, NREFS>(src, wcol / kLanes,
                                              static_cast<int>(wcol % kLanes),
                                              refs, n_refs, invert != 0);
 }
@@ -59,7 +59,14 @@ extern "C" int mcf_mlc_sense(const float* const* bases,
       mlc_sense_kernel<kSbr><<<grid, kBlock, 0, stream>>>(tables, n_tables, out, words, blocks_per_row, refs, n_refs, invert);
       break;
     case kParity:
-      mlc_sense_kernel<kParity><<<grid, kBlock, 0, stream>>>(tables, n_tables, out, words, blocks_per_row, refs, n_refs, invert);
+      // TLC's AND3 and the reduced-MLC AND read one reference, TLC's OR3
+      // two: their launches compare each cell that often, not kMaxRefs times
+      if (n_refs == 1)
+        mlc_sense_kernel<kParity, 1><<<grid, kBlock, 0, stream>>>(tables, n_tables, out, words, blocks_per_row, refs, n_refs, invert);
+      else if (n_refs == 2)
+        mlc_sense_kernel<kParity, 2><<<grid, kBlock, 0, stream>>>(tables, n_tables, out, words, blocks_per_row, refs, n_refs, invert);
+      else
+        mlc_sense_kernel<kParity><<<grid, kBlock, 0, stream>>>(tables, n_tables, out, words, blocks_per_row, refs, n_refs, invert);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

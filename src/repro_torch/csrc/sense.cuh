@@ -76,7 +76,10 @@ inline Refs load_refs(const float* host_refs) {
   return refs;
 }
 
-template <int KIND>
+// A parity read compares v with its first n_refs references. NREFS bounds
+// n_refs at compile time: kMaxRefs, or n_refs itself in a launch for a known
+// count, which then unrolls to exactly that many compares a cell.
+template <int KIND, int NREFS = kMaxRefs>
 __device__ __forceinline__ bool sense_bit(float v, const Refs& refs, int n_refs) {
   if (KIND == kLsb) return v < refs.r[0];
   if (KIND == kMsb) return (v < refs.r[0]) || (v > refs.r[1]);
@@ -88,7 +91,7 @@ __device__ __forceinline__ bool sense_bit(float v, const Refs& refs, int n_refs)
   // parity: 1 iff an even number of references lie below v
   bool odd = v > refs.r[0];
 #pragma unroll
-  for (int i = 1; i < kMaxRefs; ++i) {
+  for (int i = 1; i < NREFS; ++i) {
     if (i < n_refs) odd ^= (v > refs.r[i]);
   }
   return !odd;
@@ -96,7 +99,7 @@ __device__ __forceinline__ bool sense_bit(float v, const Refs& refs, int n_refs)
 
 // Sense and pack the 32 cells of one word: bit k from column tile*4096 +
 // k*128 + w of `row`.
-template <int KIND>
+template <int KIND, int NREFS = kMaxRefs>
 __device__ __forceinline__ uint32_t sense_word(const float* __restrict__ row,
                                                int64_t tile, int w,
                                                const Refs& refs, int n_refs,
@@ -105,7 +108,7 @@ __device__ __forceinline__ uint32_t sense_word(const float* __restrict__ row,
   uint32_t word = 0;
 #pragma unroll
   for (int k = 0; k < kWordBits; ++k) {
-    const bool bit = sense_bit<KIND>(__ldg(base + k * kLanes), refs, n_refs);
+    const bool bit = sense_bit<KIND, NREFS>(__ldg(base + k * kLanes), refs, n_refs);
     word |= static_cast<uint32_t>(bit != invert) << k;
   }
   return word;

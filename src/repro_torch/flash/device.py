@@ -238,6 +238,8 @@ class FlashDevice:
         with traced(tracer, "program_draw", "vth-draw") as span:
             if span is not None:
                 span.args["wordlines"] = len(wls)
+                span.args["encoding"] = encoding
+                span.args["pages_per_wordline"] = PAGES_PER_WL[encoding]
             for i, wl in enumerate(wls):
                 lsb_bits, msb_bits = lsb_pages[i], msb_pages[i]
                 if tuple(lsb_bits.shape) != (self._page_bits,):

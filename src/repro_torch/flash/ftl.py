@@ -223,6 +223,7 @@ class FTL:
                 raise ValueError("aligned operands must match in size")
             if span is not None:
                 span.args["wordlines"] = len(paged[0])
+                span.args["pages_per_wordline"] = len(roles)
             for n in names:
                 self._invalidate(n)
             die = self._home_die(die)

@@ -25,7 +25,8 @@ category :attr:`Tracer.totals` keeps count, time and self time):
 - ``dispatch`` (``dispatch-waves``): a plan's dispatch, holding
   ``gather`` (``vth-gather``: each unit's slot-table lookups, the rows
   the sense kernels read in place; ``tables_built`` counts the tables it
-  built) and ``launch`` (``run-waves``: the runner's launches).
+  built) and ``launch`` (``run-waves``: the runner's launches; its
+  units' ``encoding`` and each unit's reference count, ``refs``).
 - ``serve_poll`` (``poll``) and ``serve_step`` (``batch N``): the serving
   engine's batch-formation check and one coalesced batch; ``serve``
   (``request N``): a request's life from admission to its result, marked
@@ -34,7 +35,9 @@ category :attr:`Tracer.totals` keeps count, time and self time):
   (``drain-result``): a device->host result's submit and its receipt.
 - ``program`` (``write-group``): an aligned write, holding
   ``program_draw`` (``vth-draw``: the per-wordline Vth draw) and
-  ``program_store`` (``arena-write``: page records and the arena write).
+  ``program_store`` (``arena-write``: page records and the arena write);
+  ``program`` and ``program_draw`` carry the ``encoding`` and its
+  ``pages_per_wordline``.
 - ``ftl``: copyback realignment and NOT-ready copies; ``reliability``:
   recovery.
 
