@@ -71,8 +71,8 @@ class SenseItem:
     """One logical sense/read: all pages of one stored vector."""
     pid: int                      # partial id its packed result binds to
     name: str                     # vector whose pages are sensed
-    #: the stored vector's own page list (not a copy: the device's slot
-    #: tables are cached per list)
+    #: the stored vector's own page list (not a copy: the device caches
+    #: its slot tables and placement profile per list)
     wls: List[WordlineKey]
     plan: ReadPlan
     op_label: str                 # timing/energy op label
@@ -144,6 +144,12 @@ class SenseGroup:
     @property
     def wls(self) -> List[WordlineKey]:
         return [wl for it in self.items for wl in it.wls]
+
+    @property
+    def page_lists(self) -> List[List[WordlineKey]]:
+        """Its items' stored page lists, in order: the unit the device's
+        cost models book from their placement profiles."""
+        return [it.wls for it in self.items]
 
     @property
     def rids(self) -> Tuple[int, ...]:
@@ -295,7 +301,7 @@ class _Lowering:
         return pid
 
     def _dies_of(self, wls: List[WordlineKey]) -> Tuple[int, ...]:
-        return tuple(sorted({self.device.die_of_plane(p) for p, _, _ in wls}))
+        return tuple(sorted(self.device.placement_profile(wls)[0]))
 
     def _item(self, name: str, wls: List[WordlineKey], plan: ReadPlan,
               op_label: str, is_mcflash: bool, which: str | None = None) -> int:
@@ -441,7 +447,9 @@ class _Lowering:
                     memo[n] = self._lower_node(n, memo)
         finally:
             self.device.program_log = prev_log
-        self.programs = [ProgramStep(label, list(wls), self._dies_of(wls))
+        # a program's wordlines are a fresh list: walked, not profiled
+        self.programs = [ProgramStep(label, list(wls), tuple(sorted(
+            {self.device.die_of_plane(p) for p, _, _ in wls})))
                          for label, wls in log]
         return self._finish([memo[r] for r in roots], rids)
 
@@ -695,6 +703,11 @@ class Executor:
                       rids: Optional[List[int]] = None):
         sess = self.session
         tracer = sess.trace
+        dev = sess.device
+        # lowering looks up each item's placement profile first, accounting
+        # reads them again: both count towards this plan's builds
+        builds = dev.placement_profile_builds
+        reuses = dev.placement_profile_reuses
         # lowering (placement resolution) runs on the host wall clock; the
         # FTL's realignment copybacks inside it also land as device spans
         with traced(tracer, "lower", "lower", roots=len(nodes)) as span:
@@ -715,10 +728,15 @@ class Executor:
                 span.args["waves"] = len(plan.waves)
             self._account(plan, placed=layout is not None,
                           attributed=rids is not None)
-            if sess.verifier.enabled and \
-                    sess.device.ledger.mode != "independent":
+            built = dev.placement_profile_builds - builds
+            sess.metrics.counter("placement_profile_builds").add(built)
+            sess.metrics.counter("placement_profile_reuses").add(
+                dev.placement_profile_reuses - reuses)
+            if span is not None:
+                span.args["profiles_built"] = built
+            if sess.verifier.enabled and dev.ledger.mode != "independent":
                 # transfers may overlap only LATER waves' work in the step log
-                check_overlap_consistency(sess.device.ledger, plan=plan)
+                check_overlap_consistency(dev.ledger, plan=plan)
         # rids are not keyed: isomorphic batches replay one runner
         key = (self.max_fused_operands, sig, popcounts, layout)
         if tracer is not None:
@@ -733,7 +751,6 @@ class Executor:
         if tracer is not None and self.cache.evictions > evictions0:
             tracer.instant("cache", "executable-evicted",
                            evicted=self.cache.evictions - evictions0)
-        dev = sess.device
         with traced(tracer, "dispatch", "dispatch-waves",
                     waves=len(plan.waves)) as span:
             if span is not None and rids is not None:
@@ -803,7 +820,8 @@ class Executor:
         """Wave-batched ledger + counter updates: ONE parallel die step and
         one channel step per schedule wave (concurrent per-die groups in a
         wave overlap in the ledger's die-parallel makespan), each labeled
-        with its wave composition."""
+        with its wave composition.  Each unit is booked from its stored
+        page lists' placement profiles: O(units), no wordline walked."""
         sess = self.session
         dev = sess.device
         tracer = sess.trace
@@ -817,7 +835,7 @@ class Executor:
             per_ch: Dict[int, float] = {}
             uj = 0.0
             cmds = 0
-            units: List[Tuple[Dict[int, float], float, List]] = []
+            units: List[Tuple[Dict[int, float], float, list, int]] = []
             parts: List[str] = []
             wave_rids: set = set()
             for gi in wave.groups:
@@ -828,18 +846,21 @@ class Executor:
                     n_coalesced += 1
                 # the plan's own phase count drives timing/energy — encoded
                 # (TLC / reduced-MLC) op labels are not in the Table-1 maps
-                cost = (dev.mcflash_cost(g.wls, g.op_label,
+                lists = g.page_lists
+                cost = (dev.mcflash_cost(lists, g.op_label,
                                          phases=g.plan.sensing_phases)
                         if g.is_mcflash
-                        else dev.page_read_cost(g.wls, g.which,
+                        else dev.page_read_cost(lists, g.which,
                                                 phases=g.plan.sensing_phases))
-                units.append((*cost, g.wls))
-                parts.append(f"{g.op_label}x{len(g.wls)}p")
+                n_pages = sum(len(wls) for wls in lists)
+                units.append((*cost, lists, n_pages))
+                parts.append(f"{g.op_label}x{n_pages}p")
             for si in wave.fused:
                 f = plan.steps[si].fused
                 wave_rids.update(f.rids)
                 units.append((*dev.mcflash_cost(
-                    f.wls, f.op_label, phases=f.plan.sensing_phases), f.wls))
+                    f.operands, f.op_label, phases=f.plan.sensing_phases),
+                    f.operands, f.n_operands * f.n_pages))
                 parts.append(f"fused:{f.op_label}x{f.n_operands}")
                 n_fused += 1
                 n_chunks += self._fused_chunks(f.n_operands)
@@ -849,13 +870,13 @@ class Executor:
                     tracer.instant("dispatch", "tiled-megakernel-split",
                                    operands=f.n_operands,
                                    passes=self._fused_chunks(f.n_operands))
-            for unit_die, unit_uj, wls in units:
+            for unit_die, unit_uj, lists, n_pages in units:
                 for die, us in unit_die.items():
                     per_die[die] = per_die.get(die, 0.0) + us
-                for ch, us in dev.dma_cost(wls).items():
+                for ch, us in dev.dma_cost(lists).items():
                     per_ch[ch] = per_ch.get(ch, 0.0) + us
                 uj += unit_uj
-                cmds += len(wls)
+                cmds += n_pages
             label = f"wave {wi}: {'+'.join(parts)}" if parts else None
             rid_tag = tuple(sorted(wave_rids)) or None
             if len(wave_rids) > 1:

@@ -67,6 +67,10 @@ _SESSION_COUNTERS = (
     ("tail_mask_evictions", "tail-mask cache entries evicted (LRU bound)"),
     ("slot_table_builds", "page lists' slot tables built for in-place senses"),
     ("slot_table_reuses", "dispatch lookups that found a current slot table"),
+    ("placement_profile_builds",
+     "page lists' die / channel counts built for ledger costs"),
+    ("placement_profile_reuses",
+     "lowering / accounting lookups that found a page list's counts"),
     ("encoded_sense_units", "units sensed under a TLC / reduced-MLC plan"),
     ("sensing_phases", "sensing phases of those encoded units"),
 )
@@ -467,6 +471,8 @@ class ComputeSession:
             "placed_unit_dispatches": self.placed_unit_dispatches,
             "slot_table_builds": self.slot_table_builds,
             "slot_table_reuses": self.slot_table_reuses,
+            "placement_profile_builds": self.placement_profile_builds,
+            "placement_profile_reuses": self.placement_profile_reuses,
             "encoded_sense_units": self.encoded_sense_units,
             "sensing_phases": self.sensing_phases,
             "host_drain": {"submits": self.host_drain_submits,

@@ -15,7 +15,10 @@ Read plans compile once per key through the device's
 shared across sessions through ``device.executables``.  The cost of any
 command batch is exposed without booking (:meth:`mcflash_cost` /
 :meth:`page_read_cost` / :meth:`dma_cost`) so the executor can merge a
-schedule wave of per-die groups into one parallel ledger step.
+schedule wave of per-die groups into one parallel ledger step.  Those
+costs are read from each page list's cached die and channel page counts
+(:meth:`FlashDevice.placement_profile`), never from a walk of its
+wordlines, and equal the per-page running sums float for float.
 
 Vth sampling draws from the device's own ``torch.Generator`` (seeded by
 ``seed``), one independent draw per page in program order.
@@ -47,8 +50,11 @@ WordlineKey = Tuple[int, int, int]  # (plane, block, wordline)
 #: ledger/timing op label for a standard page read of each role
 PAGE_READ_OP = {"lsb": "and", "csb": "or", "msb": "or"}
 
-#: page lists whose slot tables the device keeps (least recently used out)
+#: page lists whose slot tables, and whose placement profiles, the device
+#: keeps (least recently used out)
 SLOT_TABLE_CACHE_CAP = 1024
+
+Counts = Dict[int, int]
 
 
 class FlashDevice:
@@ -93,6 +99,13 @@ class FlashDevice:
         #: slot tables built, and lookups that found a current one
         self.slot_table_builds = 0
         self.slot_table_reuses = 0
+        # id(page list) -> (the list, length, its placement profile)
+        self._profiles: "OrderedDict[int, tuple]" = OrderedDict()
+        #: placement profiles built, and lookups that found one
+        self.placement_profile_builds = 0
+        self.placement_profile_reuses = 0
+        # latency -> [k-fold running sum of it from 0.0 for k = 0, 1, ...]
+        self._folds: Dict[float, List[float]] = {}
         # stored page bits per wordline: (one tensor per role, row), role
         # order (2 for MLC/reduced, 3 for TLC)
         self._operands: Dict[WordlineKey,
@@ -124,6 +137,72 @@ class FlashDevice:
 
     def _channel_of_plane(self, plane: int) -> int:
         return self.die_of_plane(plane) // self.config.dies_per_channel
+
+    # -- placement profiles (the cost models' input) --------------------------
+    def placement_profile(self, wls: Sequence[WordlineKey]
+                          ) -> Tuple[Counts, Counts]:
+        """``({die: pages}, {channel: pages})`` of one page list, each in
+        the order its keys first appear in the list: all a command's cost
+        depends on, since every page of it adds the same time to its die
+        and its channel.  Built once per list object and reused while the
+        list keeps its length; die and channel follow from the plane alone,
+        so a slot move leaves it current.  A list is taken as never changed
+        in place, as the FTL's page lists are.  Lists of one page or none,
+        the transient lists of single-page reads and copybacks, are counted
+        as they come and not kept."""
+        if len(wls) < 2:
+            return self._count_placement(wls)
+        hit = self._profiles.get(id(wls))
+        if hit is not None and hit[0] is wls and hit[1] == len(wls):
+            self._profiles.move_to_end(id(wls))
+            self.placement_profile_reuses += 1
+            return hit[2]
+        profile = self._count_placement(wls)
+        self._profiles[id(wls)] = (wls, len(wls), profile)
+        while len(self._profiles) > SLOT_TABLE_CACHE_CAP:
+            self._profiles.popitem(last=False)
+        self.placement_profile_builds += 1
+        return profile
+
+    def _count_placement(self, wls: Sequence[WordlineKey]
+                         ) -> Tuple[Counts, Counts]:
+        planes: Counts = {}
+        for plane, _, _ in wls:
+            planes[plane] = planes.get(plane, 0) + 1
+        dies: Counts = {}
+        channels: Counts = {}
+        for plane, n in planes.items():
+            die = self.die_of_plane(plane)
+            dies[die] = dies.get(die, 0) + n
+            ch = self._channel_of_plane(plane)
+            channels[ch] = channels.get(ch, 0) + n
+        return dies, channels
+
+    def _unit_counts(self, wls, which: int) -> Tuple[Counts, int]:
+        """Die (``which`` 0) or channel (1) page counts of a command over
+        one page list or a unit's sequence of page lists, in the order of
+        first appearance over their concatenation, and its page count."""
+        lists = (wls,) if not wls or isinstance(wls[0], tuple) else wls
+        counts: Counts = {}
+        n_pages = 0
+        for pages in lists:
+            for key, n in self.placement_profile(pages)[which].items():
+                counts[key] = counts.get(key, 0) + n
+            n_pages += len(pages)
+        return counts, n_pages
+
+    def _n_fold(self, us: float, n: int) -> float:
+        """``us`` added ``n`` times from 0.0: exactly the float a per-page
+        running sum reaches (n * us rounds otherwise)."""
+        sums = self._folds.get(us)
+        if sums is None:
+            sums = self._folds[us] = [0.0]
+        if n >= len(sums):
+            acc = sums[-1]
+            for _ in range(n + 1 - len(sums)):
+                acc += us
+                sums.append(acc)
+        return sums[n]
 
     # -- arena access (the executor's input surface) --------------------------
     def slot_tables(self, wls: Sequence[WordlineKey]
@@ -330,44 +409,41 @@ class FlashDevice:
             encoding=encoding)
 
     # -- command cost models (no booking) ------------------------------------
-    def _per_die_us(self, wls: List[WordlineKey], us: float) -> Dict[int, float]:
-        per_die: Dict[int, float] = {}
-        for wl in wls:
-            die = self.die_of_plane(wl[0])
-            per_die[die] = per_die.get(die, 0.0) + us
-        return per_die
+    # ``wls``: one page list, or a unit's sequence of page lists (a sense
+    # group's items', a fused call's operands'), booked as their
+    # concatenation would be, from the lists' cached placement profiles.
+    def _per_die_us(self, wls, us: float) -> Tuple[Dict[int, float], int]:
+        counts, n_pages = self._unit_counts(wls, 0)
+        return {die: self._n_fold(us, n) for die, n in counts.items()}, n_pages
 
-    def mcflash_cost(self, wls: List[WordlineKey], op: str,
-                     switch_op: bool = True,
+    def mcflash_cost(self, wls, op: str, switch_op: bool = True,
                      phases: Optional[int] = None) -> Tuple[Dict[int, float], float]:
         """(per-die busy us, energy uj) of a batched MCFlash sense: per-page
-        read latency aggregated per die, ONE SET_FEATURE for the whole batch."""
-        per_die = self._per_die_us(
+        read latency aggregated per die, ONE SET_FEATURE for the whole batch
+        (on the die of its first page)."""
+        per_die, n_pages = self._per_die_us(
             wls, self.timing.op_latency_us(op, switch_op=False, phases=phases))
-        if switch_op and wls:
-            first = self.die_of_plane(wls[0][0])
-            per_die[first] += self.timing.t_setfeature_us
+        if switch_op and per_die:
+            per_die[next(iter(per_die))] += self.timing.t_setfeature_us
         uj = (self.energy.read_energy_uj_kb(op, phases)
-              * self.config.page_kb * len(wls))
+              * self.config.page_kb * n_pages)
         return per_die, uj
 
-    def page_read_cost(self, wls: List[WordlineKey], which: str = "lsb",
+    def page_read_cost(self, wls, which: str = "lsb",
                        phases: Optional[int] = None) -> Tuple[Dict[int, float], float]:
         """(per-die busy us, energy uj) of a batched default-reference read."""
         op = PAGE_READ_OP[which]
-        per_die = self._per_die_us(wls, self.timing.read_latency_us(op, phases))
+        per_die, n_pages = self._per_die_us(
+            wls, self.timing.read_latency_us(op, phases))
         uj = (self.energy.read_energy_uj_kb(op, phases)
-              * self.config.page_kb * len(wls))
+              * self.config.page_kb * n_pages)
         return per_die, uj
 
-    def dma_cost(self, wls: List[WordlineKey]) -> Dict[int, float]:
+    def dma_cost(self, wls) -> Dict[int, float]:
         """Per-channel busy us of NAND -> controller page transfers."""
         us = self.config.page_bytes / (self.config.channel_bw_gbps * 1e3)
-        per_ch: Dict[int, float] = {}
-        for wl in wls:
-            ch = self._channel_of_plane(wl[0])
-            per_ch[ch] = per_ch.get(ch, 0.0) + us
-        return per_ch
+        counts, _ = self._unit_counts(wls, 1)
+        return {ch: self._n_fold(us, n) for ch, n in counts.items()}
 
     # -- batched ledger accounting ------------------------------------------
     def account_mcflash_batch(self, wls: List[WordlineKey], op: str,

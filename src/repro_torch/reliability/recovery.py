@@ -179,15 +179,15 @@ class ReliabilityManager:
             uj = 0.0
             cmds = 0
 
-            def book(cost, wls):
+            def book(cost, lists):
                 nonlocal uj, cmds
                 unit_die, unit_uj = cost
                 for die, us in unit_die.items():
                     per_die[die] = per_die.get(die, 0.0) + us
-                for ch, us in dev.dma_cost(wls).items():
+                for ch, us in dev.dma_cost(lists).items():
                     per_ch[ch] = per_ch.get(ch, 0.0) + us
                 uj += unit_uj
-                cmds += len(wls)
+                cmds += sum(len(wls) for wls in lists)
 
             for gi in wave.groups:
                 g = plan.groups[gi]
@@ -195,12 +195,13 @@ class ReliabilityManager:
                 packed = backend.sense(group_rows[gi], shifted)
                 for pid, (s, e) in g.spans():
                     partials[pid] = packed[s:e].reshape(-1)
-                book(dev.mcflash_cost(g.wls, g.op_label,
+                lists = g.page_lists
+                book(dev.mcflash_cost(lists, g.op_label,
                                       phases=shifted.sensing_phases)
                      if g.is_mcflash
-                     else dev.page_read_cost(g.wls, g.which,
+                     else dev.page_read_cost(lists, g.which,
                                              phases=shifted.sensing_phases),
-                     g.wls)
+                     lists)
             for si in wave.fused:
                 st = plan.steps[si]
                 f = st.fused
@@ -215,8 +216,9 @@ class ReliabilityManager:
                              for s in range(0, f.n_operands, max_ops)]
                     out = backend.reduce(parts, st.op, invert=st.invert)
                 partials[st.out] = out.reshape(-1)
-                book(dev.mcflash_cost(f.wls, f.op_label,
-                                      phases=shifted.sensing_phases), f.wls)
+                book(dev.mcflash_cost(f.operands, f.op_label,
+                                      phases=shifted.sensing_phases),
+                     f.operands)
             for ci in wave.combines:
                 st = plan.steps[ci]
                 if len(st.args) == 1 and not st.invert:
