@@ -182,8 +182,10 @@ from torch.utils.flop_counter import FlopCounterMode
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-#: H100 SXM device-memory rate and fp32 (non-tensor) peak, from the data sheet
-HBM_BYTES_PER_S = 3.35e12
+from repro_torch.launch.cost_analysis import (  # noqa: E402
+    H100_SXM_HBM_BYTES_PER_S)
+
+#: H100 SXM fp32 (non-tensor) peak, from the data sheet
 FP32_OPS_PER_S = 67e12
 COLS = 131072                        # one 16 kB page of cells
 #: words of one operand of the XOR delta of gemma3-1b's embedding leaf
@@ -720,7 +722,7 @@ def time_kernels(gen: torch.Generator, errs: dict, fused_n: int,
                  f"path's shape: max word difference {err}")
         key = name.split(",")[0]
         errs[key] = max(errs[key], err)
-        bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+        bytes_ms = n_bytes / H100_SXM_HBM_BYTES_PER_S * 1e3
         ops_ms = n_ops / FP32_OPS_PER_S * 1e3
         plain_iters = max(2, iters // 5)
         dev = device_ops(kernel, iters, name)
@@ -1922,7 +1924,8 @@ def lm_delta(params: dict, device: str, errs: dict, layer) -> dict:
             "perturbed_params": touched,
             "delta_zero_word_share": delta_sparsity(delta),
             "delta_bytes": n_bytes,
-            "delta_bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3, **timed,
+            "delta_bound_ms": n_bytes / H100_SXM_HBM_BYTES_PER_S * 1e3,
+            **timed,
             "kernel_checks": sorted(checked)}
 
 

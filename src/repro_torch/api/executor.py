@@ -9,7 +9,7 @@ DAG into a static :class:`ExecPlan`, exactly as the JAX package does:
 2. **Fusion** rewrites any combine whose inputs are single-use, same-plan
    senses into one fused ``sense_reduce`` kernel call (with a popcount
    root, only the counts leave the kernel).  Chains longer than
-   ``max_fused_operands`` split into several passes.
+   ``MAX_FUSED_OPERANDS`` split into several passes.
 3. **Grouping** buckets every remaining sense by (:class:`ReadPlan`, die),
    so all same-plan senses on one die run in ONE batched kernel call.
 4. **Scheduling** packs the per-die groups and fused calls into
@@ -37,12 +37,15 @@ cache's own ``hits``/``misses`` counters; a miss is also a ``compile``
 span.
 
 Ledger accounting is wave-batched: each schedule wave books one parallel
-``add_die_batch`` step plus one ``add_channel_batch`` for its transfers.
+``add_die_batch`` step plus one ``add_channel_batch`` for its transfers,
+from :meth:`Executor.wave_costs`, the one description of what a wave costs
+(the recovery ladder's shifted re-run books from it too, and runs through
+an uncached runner of :meth:`Executor._build`).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -54,7 +57,7 @@ from repro_torch.kernels.rows import Rows
 from repro_torch.obs.trace import traced
 from repro_torch.verify.invariants import check_overlap_consistency
 
-__all__ = ["ExecPlan", "Executor", "ProgramStep", "Wave",
+__all__ = ["ExecPlan", "Executor", "ProgramStep", "Wave", "WaveCost",
            "MAX_FUSED_OPERANDS", "schedule_programs_into_idle_waves"]
 
 WordlineKey = Tuple[int, int, int]
@@ -209,6 +212,19 @@ class ExecPlan:
     @property
     def all_root_words(self) -> Tuple[int, ...]:
         return self.roots_words or (self.out_words,)
+
+    def with_read_plans(self, fn: Callable[[ReadPlan], ReadPlan]
+                        ) -> "ExecPlan":
+        """This plan with each sense group's and fused step's read plan
+        replaced by ``fn`` of it: structure, pids, waves and page lists are
+        shared, only the read plans differ (the recovery ladder's shifted
+        re-run)."""
+        groups = [dataclasses.replace(g, plan=fn(g.plan)) for g in self.groups]
+        steps = [st if st.fused is None else dataclasses.replace(
+                     st, fused=dataclasses.replace(st.fused,
+                                                   plan=fn(st.fused.plan)))
+                 for st in self.steps]
+        return dataclasses.replace(self, groups=groups, steps=steps)
 
     def signature(self, backend_name: str) -> tuple:
         """Hashable shape of the plan: everything the executable closes over
@@ -547,9 +563,8 @@ class _Lowering:
                                  wls=[wl for it in its for wl in it.wls],
                                  n_operands=len(its), n_pages=n_pages,
                                  dies=dies,
-                                 pass_operands=min(
-                                     len(its),
-                                     self.session.executor.max_fused_operands),
+                                 pass_operands=min(len(its),
+                                                   MAX_FUSED_OPERANDS),
                                  operands=tuple(it.wls for it in its))
             consumed.update(it.pid for it in its)
         if consumed:
@@ -605,15 +620,13 @@ class _Lowering:
         return waves, max((len(d) for d in wave_dies), default=0)
 
 
-class _TraceCounter:
-    """Tiny mutable cell the cached runners capture INSTEAD of the executor:
-    the runner cache outlives sessions (it is device-shared), so cached
-    closures must not pin a dead session's executor/session graph."""
-
-    __slots__ = ("n",)
-
-    def __init__(self) -> None:
-        self.n = 0
+class WaveCost(NamedTuple):
+    """What one schedule wave books in the ledger."""
+    per_die: Dict[int, float]     # busy us per die
+    per_ch: Dict[int, float]      # transfer us per channel
+    uj: float                     # energy
+    cmds: int                     # pages sensed
+    parts: List[str]              # its units' labels, in order
 
 
 class Executor:
@@ -622,14 +635,8 @@ class Executor:
     def __init__(self, session):
         self.session = session
         self.cache = session.device.executables
-        #: most operands one fused pass may take
-        self.max_fused_operands = MAX_FUSED_OPERANDS
-        self._traces = _TraceCounter()
-
-    @property
-    def traces(self) -> int:
-        """Runner builds across all plans this executor built."""
-        return self._traces.n
+        #: runners this executor built on a runner-cache miss
+        self.traces = 0
 
     # -- public entry points ---------------------------------------------------
     def run(self, node: Node, n_bits: int) -> torch.Tensor:
@@ -670,10 +677,6 @@ class Executor:
         self.session.verify_lowered_plan(
             plan, plan.signature(self.session.backend.name))
         return plan
-
-    def _fused_chunks(self, n_operands: int) -> int:
-        """Passes a fused spec needs at ``max_fused_operands`` per pass."""
-        return -(-n_operands // self.max_fused_operands)
 
     def _placement_layout(self, plan: ExecPlan) -> Optional[tuple]:
         """Placement layout of a plan on this session's device, or ``None``
@@ -738,11 +741,12 @@ class Executor:
                 # transfers may overlap only LATER waves' work in the step log
                 check_overlap_consistency(dev.ledger, plan=plan)
         # rids are not keyed: isomorphic batches replay one runner
-        key = (self.max_fused_operands, sig, popcounts, layout)
+        key = (sig, popcounts, layout)
         if tracer is not None:
             evictions0 = self.cache.evictions
 
         def build():
+            self.traces += 1
             with traced(tracer, "compile", "build-executable",
                         waves=len(plan.waves)):
                 return self._build(plan, popcounts, layout)
@@ -788,9 +792,10 @@ class Executor:
         where a shard lives on another card); a single-die placed unit
         reads them in place on its shard's device, handed to its stream.
 
-        Every dispatch of a plan, the runner's and the recovery ladder's
-        shifted walk alike, takes its rows here, so the units sensed under
-        a multi-level encoding and their sensing phases are counted here."""
+        Every dispatch of a plan, the cached runner's and the recovery
+        ladder's shifted re-run alike, takes its rows here, so the units
+        sensed under a multi-level encoding and their sensing phases are
+        counted here."""
         encoded = [p for p in _unit_plans(plan) if _encoding_of(p) != _tlc.MLC]
         m = self.session.metrics
         m.counter("encoded_sense_units").add(len(encoded))
@@ -815,13 +820,55 @@ class Executor:
                                  "operands")
         return tuple(out[:n]), tuple(out[n:])
 
+    def wave_costs(self, plan: ExecPlan, wave: Wave) -> WaveCost:
+        """What one schedule wave books: its units' die time, transfers,
+        energy and pages, and their labels.  Each unit is costed from its
+        stored page lists' placement profiles (O(units), no wordline
+        walked), sense groups then fused steps; per unit its die costs,
+        then its transfers.  The primary accounting and the recovery
+        ladder's shifted re-run both book from here: a shifted plan senses
+        in as many phases, so it costs the same."""
+        dev = self.session.device
+        units: List[Tuple[Dict[int, float], float, list, int]] = []
+        parts: List[str] = []
+        for gi in wave.groups:
+            g = plan.groups[gi]
+            # the plan's own phase count drives timing/energy — encoded
+            # (TLC / reduced-MLC) op labels are not in the Table-1 maps
+            lists = g.page_lists
+            cost = (dev.mcflash_cost(lists, g.op_label,
+                                     phases=g.plan.sensing_phases)
+                    if g.is_mcflash
+                    else dev.page_read_cost(lists, g.which,
+                                            phases=g.plan.sensing_phases))
+            n_pages = sum(len(wls) for wls in lists)
+            units.append((*cost, lists, n_pages))
+            parts.append(f"{g.op_label}x{n_pages}p")
+        for si in wave.fused:
+            f = plan.steps[si].fused
+            units.append((*dev.mcflash_cost(
+                f.operands, f.op_label, phases=f.plan.sensing_phases),
+                f.operands, f.n_operands * f.n_pages))
+            parts.append(f"fused:{f.op_label}x{f.n_operands}")
+        per_die: Dict[int, float] = {}
+        per_ch: Dict[int, float] = {}
+        uj = 0.0
+        cmds = 0
+        for unit_die, unit_uj, lists, n_pages in units:
+            for die, us in unit_die.items():
+                per_die[die] = per_die.get(die, 0.0) + us
+            for ch, us in dev.dma_cost(lists).items():
+                per_ch[ch] = per_ch.get(ch, 0.0) + us
+            uj += unit_uj
+            cmds += n_pages
+        return WaveCost(per_die, per_ch, uj, cmds, parts)
+
     def _account(self, plan: ExecPlan, placed: bool = False,
                  attributed: bool = False) -> None:
         """Wave-batched ledger + counter updates: ONE parallel die step and
         one channel step per schedule wave (concurrent per-die groups in a
         wave overlap in the ledger's die-parallel makespan), each labeled
-        with its wave composition.  Each unit is booked from its stored
-        page lists' placement profiles: O(units), no wordline walked."""
+        with its wave composition and booked from :meth:`wave_costs`."""
         sess = self.session
         dev = sess.device
         tracer = sess.trace
@@ -831,63 +878,37 @@ class Executor:
         n_fused = n_chunks = 0
         n_coalesced = n_shared_waves = 0
         for wi, wave in enumerate(plan.waves):
-            per_die: Dict[int, float] = {}
-            per_ch: Dict[int, float] = {}
-            uj = 0.0
-            cmds = 0
-            units: List[Tuple[Dict[int, float], float, list, int]] = []
-            parts: List[str] = []
+            cost = self.wave_costs(plan, wave)
             wave_rids: set = set()
             for gi in wave.groups:
-                g = plan.groups[gi]
-                g_rids = g.rids
+                g_rids = plan.groups[gi].rids
                 wave_rids.update(g_rids)
                 if len(g_rids) > 1:
                     n_coalesced += 1
-                # the plan's own phase count drives timing/energy — encoded
-                # (TLC / reduced-MLC) op labels are not in the Table-1 maps
-                lists = g.page_lists
-                cost = (dev.mcflash_cost(lists, g.op_label,
-                                         phases=g.plan.sensing_phases)
-                        if g.is_mcflash
-                        else dev.page_read_cost(lists, g.which,
-                                                phases=g.plan.sensing_phases))
-                n_pages = sum(len(wls) for wls in lists)
-                units.append((*cost, lists, n_pages))
-                parts.append(f"{g.op_label}x{n_pages}p")
             for si in wave.fused:
                 f = plan.steps[si].fused
                 wave_rids.update(f.rids)
-                units.append((*dev.mcflash_cost(
-                    f.operands, f.op_label, phases=f.plan.sensing_phases),
-                    f.operands, f.n_operands * f.n_pages))
-                parts.append(f"fused:{f.op_label}x{f.n_operands}")
                 n_fused += 1
-                n_chunks += self._fused_chunks(f.n_operands)
+                n_chunks += _fused_chunks(f.n_operands)
                 sess.metrics.histogram("fused_operands").observe(f.n_operands)
-                if (tracer is not None
-                        and f.n_operands > self.max_fused_operands):
+                if tracer is not None and f.n_operands > MAX_FUSED_OPERANDS:
                     tracer.instant("dispatch", "tiled-megakernel-split",
                                    operands=f.n_operands,
-                                   passes=self._fused_chunks(f.n_operands))
-            for unit_die, unit_uj, lists, n_pages in units:
-                for die, us in unit_die.items():
-                    per_die[die] = per_die.get(die, 0.0) + us
-                for ch, us in dev.dma_cost(lists).items():
-                    per_ch[ch] = per_ch.get(ch, 0.0) + us
-                uj += unit_uj
-                cmds += n_pages
-            label = f"wave {wi}: {'+'.join(parts)}" if parts else None
+                                   passes=_fused_chunks(f.n_operands))
+            label = (f"wave {wi}: {'+'.join(cost.parts)}" if cost.parts
+                     else None)
             rid_tag = tuple(sorted(wave_rids)) or None
             if len(wave_rids) > 1:
                 n_shared_waves += 1
-            if per_die:
-                dev.ledger.add_die_batch(per_die, uj, commands=cmds,
-                                         label=label, wave=wi, rids=rid_tag)
-                sess.metrics.histogram("wave_dies").observe(len(per_die))
-            if per_ch:
+            if cost.per_die:
+                dev.ledger.add_die_batch(cost.per_die, cost.uj,
+                                         commands=cost.cmds, label=label,
+                                         wave=wi, rids=rid_tag)
+                sess.metrics.histogram("wave_dies").observe(len(cost.per_die))
+            if cost.per_ch:
                 dev.ledger.add_channel_batch(
-                    per_ch, label=f"wave {wi}: dma" if parts else None,
+                    cost.per_ch,
+                    label=f"wave {wi}: dma" if cost.parts else None,
                     wave=wi, rids=rid_tag)
         m = sess.metrics
         if attributed:
@@ -903,7 +924,7 @@ class Executor:
         m.counter("megakernel_calls").add(n_chunks)
         m.counter("tiled_megakernel_splits").add(sum(
             1 for st in plan.steps if st.fused is not None
-            and st.fused.n_operands > self.max_fused_operands))
+            and st.fused.n_operands > MAX_FUSED_OPERANDS))
         m.counter("fused_reduce_calls").add(sum(
             1 for st in plan.steps if len(st.args) > 1 or st.invert
             or st.fused is not None))
@@ -914,8 +935,9 @@ class Executor:
         inputs: per sense group and per fused step the :class:`Rows` it
         senses in place (:meth:`unit_rows`: shard buffers and slot tables,
         one table per fused operand), and one packed padding mask per batch
-        root.  Returns a tuple of outputs, one per root.  Building it counts
-        as the one trace.
+        root.  Returns a tuple of outputs, one per root.  A runner-cache
+        miss builds it, and counts the one trace; the recovery ladder builds
+        one uncached over a plan with shifted read plans and counts none.
 
         Placed (``layout`` from :meth:`_placement_layout`), each single-die
         sense group and fused step is issued on its shard's stream, which
@@ -934,11 +956,9 @@ class Executor:
         bound placement methods, never the executor/session (the runner
         cache is device-shared and must not pin dead sessions)."""
         backend = self.session.backend
-        max_ops = self.max_fused_operands
         arena = self.session.device.arena
         on_slot, ready = arena.on_slot, arena.ready
         to_compute, colocate = arena.to_compute, arena.colocate
-        self._traces.n += 1
         roots = plan.all_roots
         fuse_pc = _root_fuses_popcount(plan, popcounts)
         fused_pos = _fused_positions(plan)
@@ -948,9 +968,6 @@ class Executor:
         else:
             group_slot = [slot for _, slot in layout[0]]
             fused_slot = dict(zip(fused_pos, (slot for _, slot in layout[1])))
-
-        def fused_reduce(st: CombineStep, vth: Rows) -> torch.Tensor:
-            return _fused_reduce(backend, max_ops, st, vth)
 
         def run(group_rows, fused_rows, masks):
             partials: Dict[int, torch.Tensor] = {}
@@ -974,18 +991,20 @@ class Executor:
                         mask = colocate(masks[0], slot)
                         with on_slot(slot):
                             mask2 = mask.reshape(f.n_pages, -1)
-                            if f.n_operands <= max_ops:
+                            if f.n_operands <= MAX_FUSED_OPERANDS:
                                 counts = backend.sense_reduce_popcount(
                                     vth, f.plan, mask2, op=st.op,
                                     invert=st.invert)
                             else:
-                                counts = backend.popcount(fused_reduce(
-                                    st, vth).reshape(f.n_pages, -1), mask2)
+                                counts = backend.popcount(_fused_reduce(
+                                    backend, st, vth).reshape(f.n_pages, -1),
+                                    mask2)
                             total = counts.sum(dtype=torch.int32)
                             done = ready(slot)
                         return (to_compute(total, done),)
                     with on_slot(slot):
-                        partials[st.out] = fused_reduce(st, vth).reshape(-1)
+                        partials[st.out] = _fused_reduce(
+                            backend, st, vth).reshape(-1)
                     made.setdefault(slot, []).append(st.out)
                 for slot, pids in made.items():
                     done = ready(slot)       # one event per stream and wave
@@ -1042,14 +1061,20 @@ def _fused_positions(plan: ExecPlan) -> Dict[int, int]:
         si for si, st in enumerate(plan.steps) if st.fused is not None)}
 
 
-def _fused_reduce(backend, max_ops: int, st: CombineStep,
-                  vth: Rows) -> torch.Tensor:
-    """Fused sense->reduce, split into passes of ``max_ops`` operands when
-    the chain has more (``vth[s:e]`` takes operands ``s..e-1``)."""
+def _fused_chunks(n_operands: int) -> int:
+    """Passes a fused spec needs at ``MAX_FUSED_OPERANDS`` per pass."""
+    return -(-n_operands // MAX_FUSED_OPERANDS)
+
+
+def _fused_reduce(backend, st: CombineStep, vth: Rows) -> torch.Tensor:
+    """Fused sense->reduce, split into passes of ``MAX_FUSED_OPERANDS``
+    operands when the chain has more (``vth[s:e]`` takes operands
+    ``s..e-1``)."""
     f = st.fused
-    if f.n_operands <= max_ops:
+    n = MAX_FUSED_OPERANDS
+    if f.n_operands <= n:
         return backend.sense_reduce(vth, f.plan, op=st.op, invert=st.invert)
-    parts = [backend.sense_reduce(vth[s:s + max_ops], f.plan, op=st.op,
+    parts = [backend.sense_reduce(vth[s:s + n], f.plan, op=st.op,
                                   invert=False)
-             for s in range(0, f.n_operands, max_ops)]
+             for s in range(0, f.n_operands, n)]
     return backend.reduce(parts, st.op, invert=st.invert)

@@ -35,7 +35,7 @@ import numpy as np
 import torch
 
 from repro_torch.api.backends import Backend
-from repro_torch.api.executor import ExecPlan, Executor
+from repro_torch.api.executor import MAX_FUSED_OPERANDS, ExecPlan, Executor
 from repro_torch.api.graph import ASSOCIATIVE, BitVector, Leaf, simplify
 from repro_torch.api.hostio import DrainHandle, HostDrainQueue
 from repro_torch.api.plan_cache import PlanCache
@@ -276,7 +276,7 @@ class ComputeSession:
         return PlanContext(
             die_of_plane=self.device.die_of_plane,
             page_words=self.ftl.cfg.page_bits // 32,
-            max_fused_operands=self.executor.max_fused_operands)
+            max_fused_operands=MAX_FUSED_OPERANDS)
 
     def verify_lowered_plan(self, plan: ExecPlan,
                             signature: "tuple | None" = None) -> None:

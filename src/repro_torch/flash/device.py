@@ -178,11 +178,11 @@ class FlashDevice:
             channels[ch] = channels.get(ch, 0) + n
         return dies, channels
 
-    def _unit_counts(self, wls, which: int) -> Tuple[Counts, int]:
-        """Die (``which`` 0) or channel (1) page counts of a command over
-        one page list or a unit's sequence of page lists, in the order of
-        first appearance over their concatenation, and its page count."""
-        lists = (wls,) if not wls or isinstance(wls[0], tuple) else wls
+    def _unit_counts(self, lists: Sequence[Sequence[WordlineKey]],
+                     which: int) -> Tuple[Counts, int]:
+        """Die (``which`` 0) or channel (1) page counts of a command over a
+        unit's sequence of page lists, in the order of first appearance
+        over their concatenation, and its page count."""
         counts: Counts = {}
         n_pages = 0
         for pages in lists:
@@ -409,40 +409,41 @@ class FlashDevice:
             encoding=encoding)
 
     # -- command cost models (no booking) ------------------------------------
-    # ``wls``: one page list, or a unit's sequence of page lists (a sense
-    # group's items', a fused call's operands'), booked as their
+    # ``lists``: a unit's sequence of page lists (a sense group's items', a
+    # fused call's operands', or one list as ``(wls,)``), booked as their
     # concatenation would be, from the lists' cached placement profiles.
-    def _per_die_us(self, wls, us: float) -> Tuple[Dict[int, float], int]:
-        counts, n_pages = self._unit_counts(wls, 0)
+    def _per_die_us(self, lists, us: float) -> Tuple[Dict[int, float], int]:
+        counts, n_pages = self._unit_counts(lists, 0)
         return {die: self._n_fold(us, n) for die, n in counts.items()}, n_pages
 
-    def mcflash_cost(self, wls, op: str, switch_op: bool = True,
+    def mcflash_cost(self, lists, op: str, switch_op: bool = True,
                      phases: Optional[int] = None) -> Tuple[Dict[int, float], float]:
         """(per-die busy us, energy uj) of a batched MCFlash sense: per-page
         read latency aggregated per die, ONE SET_FEATURE for the whole batch
         (on the die of its first page)."""
         per_die, n_pages = self._per_die_us(
-            wls, self.timing.op_latency_us(op, switch_op=False, phases=phases))
+            lists, self.timing.op_latency_us(op, switch_op=False,
+                                             phases=phases))
         if switch_op and per_die:
             per_die[next(iter(per_die))] += self.timing.t_setfeature_us
         uj = (self.energy.read_energy_uj_kb(op, phases)
               * self.config.page_kb * n_pages)
         return per_die, uj
 
-    def page_read_cost(self, wls, which: str = "lsb",
+    def page_read_cost(self, lists, which: str = "lsb",
                        phases: Optional[int] = None) -> Tuple[Dict[int, float], float]:
         """(per-die busy us, energy uj) of a batched default-reference read."""
         op = PAGE_READ_OP[which]
         per_die, n_pages = self._per_die_us(
-            wls, self.timing.read_latency_us(op, phases))
+            lists, self.timing.read_latency_us(op, phases))
         uj = (self.energy.read_energy_uj_kb(op, phases)
               * self.config.page_kb * n_pages)
         return per_die, uj
 
-    def dma_cost(self, wls) -> Dict[int, float]:
+    def dma_cost(self, lists) -> Dict[int, float]:
         """Per-channel busy us of NAND -> controller page transfers."""
         us = self.config.page_bytes / (self.config.channel_bw_gbps * 1e3)
-        counts, _ = self._unit_counts(wls, 1)
+        counts, _ = self._unit_counts(lists, 1)
         return {ch: self._n_fold(us, n) for ch, n in counts.items()}
 
     # -- batched ledger accounting ------------------------------------------
@@ -452,7 +453,7 @@ class FlashDevice:
         """Book die busy time + energy for a batched MCFlash sense."""
         if not wls:
             return
-        per_die, uj = self.mcflash_cost(wls, op, switch_op=switch_op,
+        per_die, uj = self.mcflash_cost((wls,), op, switch_op=switch_op,
                                         phases=phases)
         self.ledger.add_die_batch(per_die, uj, commands=len(wls))
 
@@ -462,7 +463,7 @@ class FlashDevice:
         """Book die busy time + energy for a batched default-reference read."""
         if not wls:
             return
-        per_die, uj = self.page_read_cost(wls, which, phases)
+        per_die, uj = self.page_read_cost((wls,), which, phases)
         self.ledger.add_die_batch(per_die, uj, commands=len(wls))
 
     def mcflash_read_batch(self, wls: List[WordlineKey], op: str, *,
@@ -569,7 +570,7 @@ class FlashDevice:
         """Account NAND -> controller transfers for a page batch in one call."""
         if not wls:
             return
-        self.ledger.add_channel_batch(self.dma_cost(wls))
+        self.ledger.add_channel_batch(self.dma_cost((wls,)))
 
     def ext_to_host(self, n_bytes: int) -> None:
         self.ledger.add_host(n_bytes / (self.config.host_bw_gbps * 1e3),

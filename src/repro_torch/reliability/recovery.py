@@ -156,85 +156,33 @@ class ReliabilityManager:
     def _enc_key(self, metas) -> str:
         return "+".join(sorted({m.encoding for m in metas}))
 
-    # -- eager shifted execution ----------------------------------------------
+    # -- shifted re-execution -------------------------------------------------
     def _execute_shifted(self, plan, dv: float, n_bits: int,
                          label: str) -> torch.Tensor:
         """Re-run a lowered plan with every reference stack shifted by ``dv``
-        volts — an uncached walk of the wave schedule (retry attempts are
-        rare and offset-dependent, so caching runners per offset would
+        volts through an uncached runner of the executor's (retry attempts
+        are rare and offset-dependent, so caching runners per offset would
         thrash the device cache for no win).  Books one ``recovery`` die step
-        and one channel step per wave, mirroring the primary accounting."""
+        and one channel step per wave from the executor's wave costs."""
         sess = self.session
-        backend = sess.backend
-        dev = self.device
-        max_ops = sess.executor.max_fused_operands
-        partials: Dict[int, torch.Tensor] = {}
-        fused_pos = {si: k for k, si in enumerate(
-            si for si, st in enumerate(plan.steps) if st.fused is not None)}
-        # the rows each unit senses, in place, as the primary dispatch reads
-        group_rows, fused_rows = sess.executor.unit_rows(plan, None)
+        ex = sess.executor
+        ledger = self.device.ledger
+        if dv:
+            plan = plan.with_read_plans(lambda p: shift_plan(p, dv))
         for wi, wave in enumerate(plan.waves):
-            per_die: Dict[int, float] = {}
-            per_ch: Dict[int, float] = {}
-            uj = 0.0
-            cmds = 0
-
-            def book(cost, lists):
-                nonlocal uj, cmds
-                unit_die, unit_uj = cost
-                for die, us in unit_die.items():
-                    per_die[die] = per_die.get(die, 0.0) + us
-                for ch, us in dev.dma_cost(lists).items():
-                    per_ch[ch] = per_ch.get(ch, 0.0) + us
-                uj += unit_uj
-                cmds += sum(len(wls) for wls in lists)
-
-            for gi in wave.groups:
-                g = plan.groups[gi]
-                shifted = shift_plan(g.plan, dv) if dv else g.plan
-                packed = backend.sense(group_rows[gi], shifted)
-                for pid, (s, e) in g.spans():
-                    partials[pid] = packed[s:e].reshape(-1)
-                lists = g.page_lists
-                book(dev.mcflash_cost(lists, g.op_label,
-                                      phases=shifted.sensing_phases)
-                     if g.is_mcflash
-                     else dev.page_read_cost(lists, g.which,
-                                             phases=shifted.sensing_phases),
-                     lists)
-            for si in wave.fused:
-                st = plan.steps[si]
-                f = st.fused
-                shifted = shift_plan(f.plan, dv) if dv else f.plan
-                vth = fused_rows[fused_pos[si]]
-                if f.n_operands <= max_ops:
-                    out = backend.sense_reduce(vth, shifted, op=st.op,
-                                               invert=st.invert)
-                else:
-                    parts = [backend.sense_reduce(vth[s:s + max_ops], shifted,
-                                                  op=st.op, invert=False)
-                             for s in range(0, f.n_operands, max_ops)]
-                    out = backend.reduce(parts, st.op, invert=st.invert)
-                partials[st.out] = out.reshape(-1)
-                book(dev.mcflash_cost(f.operands, f.op_label,
-                                      phases=shifted.sensing_phases),
-                     f.operands)
-            for ci in wave.combines:
-                st = plan.steps[ci]
-                if len(st.args) == 1 and not st.invert:
-                    partials[st.out] = partials[st.args[0]]
-                else:
-                    partials[st.out] = backend.reduce(
-                        [partials[a] for a in st.args], st.op,
-                        invert=st.invert)
+            cost = ex.wave_costs(plan, wave)
             step = f"{label} wave {wi} @{dv:+.3f}V"
-            if per_die:
-                dev.ledger.add_die_batch(per_die, uj, commands=cmds,
-                                         category="recovery", label=step)
-            if per_ch:
-                dev.ledger.add_channel_batch(per_ch, label=step,
-                                             category="recovery")
-        return partials[plan.root] & sess.tail_mask(n_bits, plan.out_words)
+            if cost.per_die:
+                ledger.add_die_batch(cost.per_die, cost.uj,
+                                     commands=cost.cmds,
+                                     category="recovery", label=step)
+            if cost.per_ch:
+                ledger.add_channel_batch(cost.per_ch, label=step,
+                                         category="recovery")
+        run = ex._build(plan, (False,), None)
+        group_rows, fused_rows = ex.unit_rows(plan, None)
+        return run(group_rows, fused_rows,
+                   (sess.tail_mask(n_bits, plan.out_words),))[0]
 
     def _mismatches(self, packed, want: np.ndarray, n_bits: int) -> int:
         return int(np.count_nonzero(self._sample(packed, n_bits) != want))
@@ -246,7 +194,7 @@ class ReliabilityManager:
         plan = dev.page_read_plan(meta.role, meta.encoding)
         if dv:
             plan = shift_plan(plan, dv)
-        per_die, uj = dev.page_read_cost(meta.pages, meta.role,
+        per_die, uj = dev.page_read_cost((meta.pages,), meta.role,
                                          phases=plan.sensing_phases)
         dev.ledger.add_die_batch(per_die, uj, commands=len(meta.pages),
                                  category=category,

@@ -19,7 +19,7 @@ scheduling is caught before a single kernel dispatches, not by sampling:
   earlier schedule position, every partial is produced exactly once, and the
   root is produced.
 - ``vmem-budget`` — every fused kernel's declared split takes at most the
-  executor's ``max_fused_operands`` operands per pass (the budget the JAX
+  executor's ``MAX_FUSED_OPERANDS`` operands per pass (the budget the JAX
   package derives from its VMEM size; the name is kept so both packages
   reject a corrupt split with the same invariant) and covers all its
   operands.

@@ -82,13 +82,11 @@ def test_unit_costs_equal_the_reference_loops_in_value_and_order():
             op, switch_op=False, phases=phases), dev.die_of_plane)
         if switch and flat:
             mine[dev.die_of_plane(flat[0][0])] += dev.timing.t_setfeature_us
-        forms = [unit] + ([unit[0]] if len(unit) == 1 else [])
-        for form in forms:
-            got_die, got_uj = dev.mcflash_cost(form, op, switch_op=switch,
-                                               phases=phases)
-            assert list(got_die.items()) == list(want_die.items()) \
-                == list(mine.items())
-            assert got_uj == want_uj
+        got_die, got_uj = dev.mcflash_cost(unit, op, switch_op=switch,
+                                           phases=phases)
+        assert list(got_die.items()) == list(want_die.items()) \
+            == list(mine.items())
+        assert got_uj == want_uj
         which = rng.choice(sorted(PAGE_READ_OP))
         want_die, want_uj = ref.page_read_cost(flat, which, phases)
         mine = _loop(dev, flat, dev.timing.read_latency_us(
@@ -99,9 +97,8 @@ def test_unit_costs_equal_the_reference_loops_in_value_and_order():
         assert got_uj == want_uj
         want_ch = ref.dma_cost(flat)
         mine = _loop(dev, flat, dma_us, dev._channel_of_plane)
-        for form in forms:
-            assert list(dev.dma_cost(form).items()) \
-                == list(want_ch.items()) == list(mine.items())
+        assert list(dev.dma_cost(unit).items()) \
+            == list(want_ch.items()) == list(mine.items())
     # every list of two pages or more was profiled once, then reused
     assert dev.placement_profile_builds == sum(
         1 for wls in used.values() if len(wls) > 1)

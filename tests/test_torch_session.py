@@ -20,6 +20,7 @@ from hypothesis import strategies as st
 from repro.api import ComputeSession as RefSession
 from repro.flash.geometry import SSDConfig as RefConfig
 from repro_torch.api import session as port_session
+from repro_torch.api.executor import MAX_FUSED_OPERANDS
 from repro_torch.api.hostio import to_numpy
 from repro_torch.api.session import ComputeSession
 from repro_torch.flash.geometry import SSDConfig
@@ -152,7 +153,7 @@ def test_loaded_arena_and_chain_split_match_reference():
         np.asarray(ref.materialize(r_expr, unpacked=True)).astype(bool), want)
     for key in COUNTERS:
         assert getattr(port, key) == getattr(ref, key), key
-    assert port.executor.max_fused_operands == 32
+    assert port.plan_context().max_fused_operands == MAX_FUSED_OPERANDS == 32
     assert port.tiled_megakernel_splits == 2      # the count and the words
 
 
