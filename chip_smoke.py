@@ -6,10 +6,12 @@
 1. Prints the card's name and power limit (``nvidia-smi``) and builds the
    CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per source, in
    parallel).
-2. Holds each of the five kernels against its plain PyTorch version on
+2. Holds each of the six kernels against its plain PyTorch version on
    the card at full 16 kB pages (131072 cells), bit for bit: rows that are
    and are not multiples of 8, every read kind (``parity`` with 1..8
-   references), every op, both inversion flags, words with bit 31 set.
+   references), every op, both inversion flags, words with bit 31 set;
+   ``sense_popcount`` (sense and count in one pass) also over ragged
+   tails and past 32 slot tables.
    ``bitwise_reduce`` also takes its operands as separate allocations (N
    from 1 to past its 64-pointer cap, where it folds in passes), as views
    4 bytes off a 16-byte boundary, on planes that are not a multiple of 4
@@ -22,15 +24,21 @@
    gemma3-1b's embedding leaf (the XOR delta's largest, 1.21 GB each,
    against ``torch.bitwise_xor``), the root count with its tail mask in
    the kernel against an AND pass first, and the masked count of (3,
-   2**21) words.  Prints the host's enqueue time per call of the word
-   kernels' wrappers and of each part of their launch path.
+   2**21) words; ``sense_popcount`` at the segmentation cell's shape
+   (1,875 rows, a one-reference parity read, from an arena-like shard
+   through an out-of-order slot table) and under ``lsb``, beside the
+   ``mlc_sense`` then masked ``popcount_rows`` it replaces there.  Prints
+   the host's enqueue time per call of the word kernels' wrappers and of
+   each part of their launch path.
 3. Drives the compute-session main path, ``ComputeSession(device="cuda")``
    on the default SSD (16 channels x 8 dies, 16 kB pages): the seven
    Table-1 ops and the TLC AND3/OR3 fast paths under mlc, tlc and
    reduced-mlc; the Fig-10 bitmap index (AND over 30 daily bitmaps of
    2**25 users, 256 pages each) with its popcount; an image-encryption XOR.
    Every result is held against a numpy oracle bit for bit, and every
-   kernel's launch count must have risen during this phase.
+   kernel's launch count but ``popcount_rows``' must have risen during
+   this phase (``PATH_KERNELS``: each root it counts is one sense, which
+   ``sense_popcount`` counts, or a fused chain).
 4. Serving phase: a ``repro_torch.serve.QueryEngine`` with the default
    ``SLOConfig`` over a session on the default SSD: 32 column bitmaps of
    2**25 bits (16 MLC pairs over 16 dies, 2 GiB of Vth) and 96 requests in
@@ -156,7 +164,7 @@
    ``train_flops`` and the JAX package's 6·N·D, and the step's measured
    time against the roofline's lower bound.
 13. Prints the ``kernels`` JSON line (launches summed over the eight
-   paths; the pipeline and cost phases launch none of the five kernels),
+   paths; the pipeline and cost phases launch none of the six kernels),
    then a last line ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero before the last line.  Without a
@@ -219,7 +227,12 @@ FILTER_PAIRS = 4
 #: kernel calls of the applications phase, per kernel, in its rehearsal on
 #: the CPU at 1 kB pages and the same page counts (2**21 bits per operand)
 APPS_LAUNCHES = {"mlc_sense": 3, "sense_reduce": 2, "sense_reduce_popcount": 1,
-                 "bitwise_reduce": 1, "popcount_rows": 0}
+                 "bitwise_reduce": 1, "popcount_rows": 0, "sense_popcount": 0}
+#: kernels the main path and the placed phase launch: every root they count
+#: is one sense (``sense_popcount``) or a fused chain, so they launch every
+#: kernel but ``popcount_rows``
+PATH_KERNELS = ("mlc_sense", "sense_reduce", "sense_reduce_popcount",
+                "bitwise_reduce", "sense_popcount")
 PLACED_SHARDS = 4                    # FlashDevice(shard_devices=["cuda"] * 4)
 PLACED_SEED = 5
 PLACED_PAIRS = 3                     # placed / unplaced workload pairs, timed
@@ -289,12 +302,12 @@ SSM_TRAIN_ARCH, SSM_TRAIN_STEPS, SSM_TRAIN_SEQ = "mamba2-130m", 4, 256
 #: the corpus shards the training example's BitmapFilter selects from
 TRAIN_SHARDS = 131072
 #: kernel calls of the training phase per kernel, from its rehearsal on the
-#: CPU (the same filter on the default SSD: one sense of the pair's AND and
-#: its popcount; the delta of a tree with gemma3-1b's 90 leaves, one reduce
-#: per leaf and direction)
-TRAIN_LAUNCHES = {"mlc_sense": 1, "sense_reduce": 0,
+#: CPU (the same filter on the default SSD: the pair's AND sensed and
+#: counted in one pass; the delta of a tree with gemma3-1b's 90 leaves, one
+#: reduce per leaf and direction)
+TRAIN_LAUNCHES = {"mlc_sense": 0, "sense_reduce": 0,
                   "sense_reduce_popcount": 0, "bitwise_reduce": 180,
-                  "popcount_rows": 1}
+                  "popcount_rows": 0, "sense_popcount": 1}
 #: the H100's dense bfloat16 peak (NVIDIA's data sheet, SXM, at 700 W)
 BF16_PEAK_FLOPS = 989e12
 #: the pipeline phase: gemma3-1b's four stacked pattern units (6 layers
@@ -323,8 +336,17 @@ KERNELS = {
                        "src/repro/kernels/bitops.py:46"),
     "popcount_rows": ("src/repro_torch/csrc/popcount.cu",
                       "src/repro/kernels/popcount.py:47"),
+    # a counted root whose plan is one sense: the JAX package runs
+    # mlc_sense, then popcount_rows of its words
+    "sense_popcount": ("src/repro_torch/csrc/mlc_sense.cu",
+                       "src/repro/kernels/mlc_sense.py:87 + "
+                       "src/repro/kernels/popcount.py:47"),
 }
 KIND_REFS = {"lsb": [1.9], "msb": [0.1, 3.7], "sbr": [0.1, 3.7, 1.9, 5.5]}
+#: the segmentation cell's counted root: 1,875 wordlines of 131072 cells
+#: (245,760,000 bits, a batch of 512 frames), one TLC AND3 sense
+SEGMENT_ROWS = 1875
+SEGMENT_REFS = [2.0]
 #: float32 compares per cell of each read kind (parity: one per reference)
 KIND_COMPARES = {"lsb": 1, "msb": 2, "sbr": 4}
 
@@ -499,7 +521,8 @@ def check_tables(gen: torch.Generator, cases) -> dict:
 
     shards = [torch.randn(13, COLS, generator=gen, device="cuda") * 2 + 2,
               torch.randn(7, COLS, generator=gen, device="cuda") * 2 + 2]
-    errs = {"mlc_sense": 0, "sense_reduce": 0, "sense_reduce_popcount": 0}
+    errs = {"mlc_sense": 0, "sense_reduce": 0, "sense_reduce_popcount": 0,
+            "sense_popcount": 0}
     rows = shard_tables(gen, shards, 5, 3)
     rows = Rows(rows.bufs, [rows.slots[0], rows.slots[1],
                             rows.slots[0].flip(0)])          # repeats a row
@@ -512,6 +535,8 @@ def check_tables(gen: torch.Generator, cases) -> dict:
             want = mlc_sense.reference(dense.reshape(15, COLS), refs, kind,
                                        invert, n_refs)
             errs["mlc_sense"] = max(errs["mlc_sense"], word_err(got, want))
+            errs["sense_popcount"] = max(errs["sense_popcount"], count_err(
+                rows, dense.reshape(15, COLS), refs, kind, invert, n_refs))
             for op in ("and", "or", "xor"):
                 args = dict(kind=kind, sense_invert=not invert, op=op,
                             invert=invert, n_refs=n_refs)
@@ -525,13 +550,38 @@ def check_tables(gen: torch.Generator, cases) -> dict:
                                                 not invert, op, invert, n_refs)
                 errs["sense_reduce_popcount"] = max(
                     errs["sense_reduce_popcount"], word_err(got, want))
-    # more tables than one launch takes: mlc_sense runs them in launches
+    # more tables than one launch takes: mlc_sense runs them in launches,
+    # sense_popcount in launches adding to one total (a tail that ends in
+    # the first launch leaves the second out)
     many = shard_tables(gen, shards, 2, 40)
     got = mlc_sense.mlc_sense(many, [1.9], kind="lsb", n_refs=1)
     want = mlc_sense.reference(many.gather(), [1.9], "lsb", False, 1)
     errs["mlc_sense"] = max(errs["mlc_sense"], word_err(got, want))
+    for invert in (False, True):
+        errs["sense_popcount"] = max(errs["sense_popcount"], count_err(
+            many, many.gather(), [1.9], "lsb", invert, 1,
+            tails=(None, 70 * COLS - 4096 - 77, 20 * COLS + 5)))
     sync()
     return errs
+
+
+def count_err(vth, dense: torch.Tensor, refs, kind: str, invert: bool,
+              n_refs: int, tails=None) -> int:
+    """``sense_popcount`` of ``vth`` against its plain version on ``dense``
+    (the same rows), over all its cells and over ragged tails: one inside a
+    4096-cell unit of the last row, one of 100 cells, none.  Returns the
+    largest difference."""
+    from repro_torch.kernels import mlc_sense
+
+    cells = dense.shape[0] * COLS
+    err = 0
+    for n_bits in tails or (None, cells - 4096 - 77, 100, 0):
+        got = mlc_sense.sense_popcount(vth, refs, kind=kind, invert=invert,
+                                       n_refs=n_refs, n_bits=n_bits)
+        want = mlc_sense.reference_popcount(dense, refs, kind, invert, n_refs,
+                                            n_bits)
+        err = max(err, word_err(got, want))
+    return err
 
 
 def check_kernels(gen: torch.Generator) -> dict:
@@ -549,6 +599,8 @@ def check_kernels(gen: torch.Generator) -> dict:
                                           n_refs=n_refs)
                 want = mlc_sense.reference(vth, refs, kind, invert, n_refs)
                 errs["mlc_sense"] = max(errs["mlc_sense"], word_err(got, want))
+                errs["sense_popcount"] = max(errs["sense_popcount"], count_err(
+                    vth, vth, refs, kind, invert, n_refs))
             for op in ("and", "or", "xor"):
                 for sense_invert in (False, True):
                     for invert in (False, True):
@@ -640,6 +692,15 @@ def time_kernels(gen: torch.Generator, errs: dict, fused_n: int,
               for _ in range(2)]
     group = shard_tables(extra, shards, rows // 2, 2)
     chain = shard_tables(extra, shards, rows, fused_n)
+    # the segmentation cell's counted root as the executor reads it: 1,875
+    # rows of an arena-like shard through an out-of-order slot table (a
+    # generator of its own, as above)
+    segment = torch.Generator(device="cuda")
+    segment.manual_seed(4)
+    seg = shard_tables(segment, [torch.randn(
+        2048, COLS, generator=segment, device="cuda") * 2 + 2],
+        SEGMENT_ROWS, 1)
+    seg_cells = SEGMENT_ROWS * COLS
     lsb = KIND_REFS["lsb"]
     cell_bytes = 4 + 1 / 8
     # name -> (kernel, plain, library or None, bytes, operations, iters)
@@ -684,6 +745,17 @@ def time_kernels(gen: torch.Generator, errs: dict, fused_n: int,
                 False, "and", False, 1),
             None, fused_n * rows * (COLS * 4 + 4) + rows * COLS / 8 + rows * 4,
             fused_n * rows * COLS * 2 + rows * COLS, 5),
+        "sense_popcount": (
+            lambda: mlc_sense.sense_popcount(seg, SEGMENT_REFS, kind="parity",
+                                             n_refs=1),
+            lambda: mlc_sense.reference_popcount(seg.gather(), SEGMENT_REFS,
+                                                 "parity", False, 1),
+            None, seg_cells * 4 + 4, seg_cells * 2, 20),
+        "sense_popcount, lsb": (
+            lambda: mlc_sense.sense_popcount(seg, lsb, kind="lsb", n_refs=1),
+            lambda: mlc_sense.reference_popcount(seg.gather(), lsb, "lsb",
+                                                 False, 1),
+            None, seg_cells * 4 + 4, seg_cells * 2, 20),
         "bitwise_reduce": (
             lambda: bitops.bitwise_reduce(pair, op="or"),
             lambda: bitops.reference(pair, "or", False),
@@ -746,8 +818,27 @@ def time_kernels(gen: torch.Generator, errs: dict, fused_n: int,
     out["popcount_rows, root count"].update(
         and_first_ms=time_ms(lambda: popcount.popcount_rows(flat & tail), 50),
         and_first_device_ms=dev["ms"], and_first_ops_per_call=dev["ops"])
+    # the segmentation root as the executor ran it before: the words
+    # sensed, then their one-row count under the (all-ones) tail mask
+    seg_mask = torch.full((1, seg_cells // 32), -1, dtype=torch.int32,
+                          device="cuda")
+
+    def words_then_count():
+        words = mlc_sense.mlc_sense(seg, SEGMENT_REFS, kind="parity", n_refs=1)
+        return popcount.popcount_rows(words.reshape(1, -1), seg_mask)[0]
+
+    err = word_err(words_then_count(), mlc_sense.sense_popcount(
+        seg, SEGMENT_REFS, kind="parity", n_refs=1))
+    if err:
+        fail(f"sense_popcount differs from mlc_sense then popcount_rows at "
+             f"the segmentation shape by {err}")
+    dev = device_ops(words_then_count, 20, "segmentation root, words first")
+    out["sense_popcount"].update(
+        words_then_count_ms=time_ms(words_then_count, 20),
+        words_then_count_device_ms=dev["ms"],
+        words_then_count_ops_per_call=dev["ops"])
     out["host_enqueue_us"] = host_split(pair, flat, tail)
-    del leaf, wide, wide_mask, shards, group, chain
+    del leaf, wide, wide_mask, shards, group, chain, seg, seg_mask
     torch.cuda.empty_cache()
     return out
 
@@ -950,7 +1041,8 @@ def word_popcount(words: np.ndarray) -> int:
 #: backend method -> the kernel its call launches
 BACKEND_KERNELS = {"sense": "mlc_sense", "sense_reduce": "sense_reduce",
                    "sense_reduce_popcount": "sense_reduce_popcount",
-                   "reduce": "bitwise_reduce", "popcount": "popcount_rows"}
+                   "reduce": "bitwise_reduce", "popcount": "popcount_rows",
+                   "sense_popcount": "sense_popcount"}
 
 
 @dataclasses.dataclass
@@ -983,8 +1075,9 @@ def recording(backend):
         if not isinstance(a, Rows):
             return a
         dense = a.gather()
-        return dense if name == "mlc_sense" else dense.reshape(
-            len(a), -1, a.cols)
+        if name in ("mlc_sense", "sense_popcount"):
+            return dense
+        return dense.reshape(len(a), -1, a.cols)
 
     def wrap(method: str, name: str):
         real = getattr(backend, method)
@@ -1034,11 +1127,16 @@ def hold_recorded(calls: dict) -> dict:
         return fused.reference_popcount(vth, refs, mask, kind, inv, op,
                                         invert, n)
 
+    def sense_popcount(vth, plan, n_bits=None):
+        refs, kind, inv, n = parts(plan)
+        return mlc_sense.reference_popcount(vth, refs, kind, inv, n, n_bits)
+
     plain = {"mlc_sense": sense, "sense_reduce": sense_reduce,
              "sense_reduce_popcount": sense_reduce_popcount,
              "bitwise_reduce": lambda operands, op, invert=False, out=None:
                  bitops.reference(operands, op, invert),
-             "popcount_rows": popcount.reference}
+             "popcount_rows": popcount.reference,
+             "sense_popcount": sense_popcount}
     out: dict = {}
     for (name, *_), (args, kwargs, got) in calls.items():
         out[name] = max(out.get(name, 0),
@@ -3077,6 +3175,13 @@ def main() -> int:
           f"{root['and_first_ms']:.5f} ms a call, device "
           f"{root['and_first_device_ms']} ms in "
           f"{root['and_first_ops_per_call']} ops", flush=True)
+    seg = timing["sense_popcount"]
+    print(f"  segmentation root as mlc_sense then popcount_rows ({gpu}): "
+          f"{seg['words_then_count_ms']:.5f} ms a call, device "
+          f"{seg['words_then_count_device_ms']} ms in "
+          f"{seg['words_then_count_ops_per_call']} ops; sense_popcount "
+          f"device {seg['device_ms']} ms against its bound "
+          f"{seg['bound_ms']:.5f} ms", flush=True)
     print(f"host enqueue, us per call over 1000 calls ({gpu}): "
           + json.dumps(host), flush=True)
     record["host_enqueue_us"] = host
@@ -3112,7 +3217,7 @@ def main() -> int:
     print(f"bitmap index: {json.dumps(run['bitmap'])}; "
           f"{run['checks']} checks bit-exact; launches {json.dumps(launches)}",
           flush=True)
-    require_launches(launches, KERNELS, "main path")
+    require_launches(launches, PATH_KERNELS, "main path")
     del prof
     gc.collect()
     torch.cuda.empty_cache()
@@ -3134,7 +3239,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     placed = placed_phase(errs, gpu)
-    require_launches(placed["launches"], KERNELS, "placed")
+    require_launches(placed["launches"], PATH_KERNELS, "placed")
     gc.collect()
     torch.cuda.empty_cache()
     lm_run = lm_phase(errs, gpu)

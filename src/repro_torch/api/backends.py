@@ -36,6 +36,13 @@ class Backend:
         plan -> (R, C//32) packed int32."""
         return kops.sense_plan(vth, plan)
 
+    def sense_popcount(self, vth: Vth, plan: ReadPlan,
+                       n_bits: Optional[int] = None) -> torch.Tensor:
+        """R Vth rows + read plan -> 0-d int32: the ones among the first
+        ``n_bits`` sensed cells (row after row), sensed and counted in one
+        pass with no words written."""
+        return kops.sense_popcount_plan(vth, plan, n_bits)
+
     def reduce(self, operands: Union[torch.Tensor, Sequence[torch.Tensor]],
                op: str, invert: bool = False,
                out: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -9,7 +9,9 @@ DAG into a static :class:`ExecPlan`, exactly as the JAX package does:
 2. **Fusion** rewrites any combine whose inputs are single-use, same-plan
    senses into one fused ``sense_reduce`` kernel call (with a popcount
    root, only the counts leave the kernel).  Chains longer than
-   ``MAX_FUSED_OPERANDS`` split into several passes.
+   ``MAX_FUSED_OPERANDS`` split into several passes.  A counted root
+   whose plan is one sense (one group of one item) is sensed and counted
+   in one ``sense_popcount`` call, its words never written.
 3. **Grouping** buckets every remaining sense by (:class:`ReadPlan`, die),
    so all same-plan senses on one die run in ONE batched kernel call.
 4. **Scheduling** packs the per-die groups and fused calls into
@@ -726,6 +728,8 @@ class Executor:
             if span is not None:
                 span.args["cached"] = sess.verifier.cache_hits > hits
         layout = self._placement_layout(plan)
+        counted = _root_counts_in_sense(plan, popcounts)
+        sess.metrics.counter("sense_counted_roots").add(int(counted))
         with traced(tracer, "account", "account-waves") as span:
             if span is not None:
                 span.args["waves"] = len(plan.waves)
@@ -781,7 +785,8 @@ class Executor:
                     span.args["encoding"] = "+".join(
                         dict.fromkeys(_encoding_of(p) for p in plans))
                     span.args["refs"] = [len(p.refs) for p in plans]
-                return fn(group_rows, fused_rows, masks)
+                    span.args["counted"] = counted
+                return fn(group_rows, fused_rows, masks, tuple(n_bits_list))
 
     def unit_rows(self, plan: ExecPlan, layout: Optional[tuple]
                    ) -> Tuple[Tuple[Rows, ...], Tuple[Rows, ...]]:
@@ -934,10 +939,11 @@ class Executor:
         """Close an eager wave runner over the static plan.  Runtime
         inputs: per sense group and per fused step the :class:`Rows` it
         senses in place (:meth:`unit_rows`: shard buffers and slot tables,
-        one table per fused operand), and one packed padding mask per batch
-        root.  Returns a tuple of outputs, one per root.  A runner-cache
-        miss builds it, and counts the one trace; the recovery ladder builds
-        one uncached over a plan with shifted read plans and counts none.
+        one table per fused operand), one packed padding mask and the bit
+        count per batch root.  Returns a tuple of outputs, one per root.  A
+        runner-cache miss builds it, and counts the one trace; the recovery
+        ladder builds one uncached over a plan with shifted read plans and
+        counts none.
 
         Placed (``layout`` from :meth:`_placement_layout`), each single-die
         sense group and fused step is issued on its shard's stream, which
@@ -948,9 +954,12 @@ class Executor:
         only where a controller combine or a root consumes them: the
         compute stream waits for their stream's event, and the partial is
         marked as used there.  The single-root fused popcount keeps its
-        fast path on the shard's stream.  Unplaced (``layout`` None), every
-        unit's slot is None, and the arena's placement methods do nothing:
-        everything runs on the current stream.
+        fast path on the shard's stream, and so does a counted root whose
+        plan is one sense (:func:`_root_counts_in_sense`): one
+        ``sense_popcount`` over its group's rows, which counts the root's
+        first ``n_bits`` cells and needs no mask.  Unplaced (``layout``
+        None), every unit's slot is None, and the arena's placement methods
+        do nothing: everything runs on the current stream.
 
         The closure captures the backend, the static plan and the arena's
         bound placement methods, never the executor/session (the runner
@@ -961,6 +970,7 @@ class Executor:
         to_compute, colocate = arena.to_compute, arena.colocate
         roots = plan.all_roots
         fuse_pc = _root_fuses_popcount(plan, popcounts)
+        counted = _root_counts_in_sense(plan, popcounts)
         fused_pos = _fused_positions(plan)
         if layout is None:
             group_slot = [None] * len(plan.groups)
@@ -969,7 +979,15 @@ class Executor:
             group_slot = [slot for _, slot in layout[0]]
             fused_slot = dict(zip(fused_pos, (slot for _, slot in layout[1])))
 
-        def run(group_rows, fused_rows, masks):
+        def run(group_rows, fused_rows, masks, n_bits):
+            if counted:
+                slot = group_slot[0]
+                with on_slot(slot):
+                    total = backend.sense_popcount(group_rows[0],
+                                                   plan.groups[0].plan,
+                                                   n_bits[0])
+                    done = ready(slot)
+                return (to_compute(total, done),)
             partials: Dict[int, torch.Tensor] = {}
             events: Dict[int, object] = {}    # pid -> event after its producer
             for wave in plan.waves:
@@ -1053,6 +1071,16 @@ def _root_fuses_popcount(plan: ExecPlan, popcounts: Tuple[bool, ...]) -> bool:
     return (len(plan.all_roots) == 1 and popcounts[0] and bool(plan.steps)
             and plan.steps[-1].out == plan.root
             and plan.steps[-1].fused is not None)
+
+
+def _root_counts_in_sense(plan: ExecPlan,
+                          popcounts: Tuple[bool, ...]) -> bool:
+    """Whether the root is sensed and counted in one ``sense_popcount``:
+    only on a single-root counted plan with no combine step and one sense
+    group of one item, that item being the root."""
+    return (len(plan.all_roots) == 1 and popcounts[0] and not plan.steps
+            and len(plan.groups) == 1 and len(plan.groups[0].items) == 1
+            and plan.groups[0].items[0].pid == plan.root)
 
 
 def _fused_positions(plan: ExecPlan) -> Dict[int, int]:

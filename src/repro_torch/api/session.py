@@ -73,6 +73,8 @@ _SESSION_COUNTERS = (
      "lowering / accounting lookups that found a page list's counts"),
     ("encoded_sense_units", "units sensed under a TLC / reduced-MLC plan"),
     ("sensing_phases", "sensing phases of those encoded units"),
+    ("sense_counted_roots",
+     "counted roots sensed and counted in one sense_popcount call"),
 )
 
 #: per-shape tail-mask cache bound
@@ -475,6 +477,7 @@ class ComputeSession:
             "placement_profile_reuses": self.placement_profile_reuses,
             "encoded_sense_units": self.encoded_sense_units,
             "sensing_phases": self.sensing_phases,
+            "sense_counted_roots": self.sense_counted_roots,
             "host_drain": {"submits": self.host_drain_submits,
                            "blocks": self.host_drain_blocks,
                            "pending": len(self.host_queue),

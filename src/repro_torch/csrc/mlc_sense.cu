@@ -5,6 +5,14 @@
 // memory: 4 B read per cell, 1/8 B written. One thread per output word; a
 // block covers kBlock words of one output row, whose address its first thread
 // looks up in the tables (the output rows are the tables' rows in order).
+//
+// Sense + count (mcf_sense_popcount): the same R rows, in the same order, to
+// one int, the cells among the first `valid` (row after row) that sense to 1.
+// It stands for mlc_sense then a masked popcount_rows of a counted root whose
+// plan is one sense: 4 B read per counted cell and nothing else, no word
+// written or read back, no mask read. A count needs no lane-major packing, so
+// each thread streams 16-byte loads of consecutive cells and adds its bits;
+// a grid of the blocks the card holds at once strides over 4096-cell units.
 #include "sense.cuh"
 
 namespace mcf {
@@ -28,6 +36,82 @@ mlc_sense_kernel(const RowTables tables, int n_tables,
   out[row * words + wcol] = sense_word<KIND, NREFS>(src, wcol / kLanes,
                                              static_cast<int>(wcol % kLanes),
                                              refs, n_refs, invert != 0);
+}
+
+// A counting unit: the 4096 cells of one tile of one row, kCountVecs float4
+// loads a thread, all issued before the first compare.
+constexpr int kCountVecs = kTileCols / (4 * kBlock);
+
+// The cells of one unit, from `p` (this thread's first float4), that sense to
+// 1; with TAIL only those of the unit's first `left` cells.
+template <int KIND, int NREFS, bool TAIL>
+__device__ __forceinline__ int count_unit(const float4* __restrict__ p,
+                                          const Refs& refs, int n_refs,
+                                          bool invert, int64_t left) {
+  float4 v[kCountVecs];
+#pragma unroll
+  for (int j = 0; j < kCountVecs; ++j) v[j] = __ldg(p + j * kBlock);
+  int n = 0;
+#pragma unroll
+  for (int j = 0; j < kCountVecs; ++j) {
+    const float c[4] = {v[j].x, v[j].y, v[j].z, v[j].w};
+    const int64_t cell = 4 * (static_cast<int64_t>(j) * kBlock + threadIdx.x);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (!TAIL || cell + e < left)
+        n += sense_bit<KIND, NREFS>(c[e], refs, n_refs) != invert;
+    }
+  }
+  return n;
+}
+
+// Grid-stride over the units, rows in table order: unit u is tile
+// u % per_row of row u / per_row, whose address the block looks up in the
+// tables (one slot, read by every thread at once). Neighbouring blocks read
+// neighbouring tiles. Each block adds its sum to *out with one atomic.
+template <int KIND, int NREFS = kMaxRefs>
+__global__ void __launch_bounds__(kBlock)
+sense_popcount_kernel(const RowTables tables, int n_tables,
+                      int* __restrict__ out, int64_t cols, int64_t valid,
+                      int units, Refs refs, int n_refs, int invert) {
+  const int per_row = static_cast<int>(cols / kTileCols);
+  const int full = static_cast<int>(valid / kTileCols);  // units wholly counted
+  int count = 0;
+  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    const int row = u / per_row;
+    int i = 0;
+    while (i + 1 < n_tables && row >= tables.end[i]) ++i;
+    const float4* p =
+        reinterpret_cast<const float4*>(table_row(
+            tables, i, row - (i ? tables.end[i - 1] : 0), cols)) +
+        static_cast<int64_t>(u - row * per_row) * (kTileCols / 4) + threadIdx.x;
+    count += u < full
+                 ? count_unit<KIND, NREFS, false>(p, refs, n_refs, invert != 0, 0)
+                 : count_unit<KIND, NREFS, true>(
+                       p, refs, n_refs, invert != 0,
+                       valid - static_cast<int64_t>(u) * kTileCols);
+  }
+  block_add(count, out);
+}
+
+// Launch one instance over `units` units on a grid of the blocks the card
+// holds at once (its SMs times what one SM holds of this instance).
+template <int KIND, int NREFS = kMaxRefs>
+void launch_sense_popcount(const RowTables& tables, int n_tables, int* out,
+                           int64_t cols, int64_t valid, int units,
+                           const Refs& refs, int n_refs, int invert,
+                           cudaStream_t stream) {
+  static int per_sm = 0;
+  if (per_sm == 0) {
+    int n = 0;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &n, sense_popcount_kernel<KIND, NREFS>, kBlock, 0);
+    per_sm = n > 0 ? n : 1;
+  }
+  const int64_t cap = resident_blocks() / (2048 / kBlock) * per_sm;
+  const unsigned int grid = static_cast<unsigned int>(units < cap ? units : cap);
+  sense_popcount_kernel<KIND, NREFS><<<grid, kBlock, 0, stream>>>(
+      tables, n_tables, out, cols, valid, units, refs, n_refs, invert);
 }
 
 }  // namespace mcf
@@ -67,6 +151,58 @@ extern "C" int mcf_mlc_sense(const float* const* bases,
         mlc_sense_kernel<kParity, 2><<<grid, kBlock, 0, stream>>>(tables, n_tables, out, words, blocks_per_row, refs, n_refs, invert);
       else
         mlc_sense_kernel<kParity><<<grid, kBlock, 0, stream>>>(tables, n_tables, out, words, blocks_per_row, refs, n_refs, invert);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The rows as mcf_mlc_sense takes them; `*out` gets the count of the cells
+// that sense to 1 among the first `valid` (row r's cell c is cell r * cols +
+// c; at most rows * cols). With `zero` the entry zeroes *out on `stream`
+// first, else it adds to it (a later launch of more than kMaxTables tables).
+// Every base must be 16-byte aligned.
+extern "C" int mcf_sense_popcount(const float* const* bases,
+                                  const int32_t* const* slots,
+                                  const int64_t* ends, int n_tables, int* out,
+                                  int64_t rows, int64_t cols, int64_t valid,
+                                  int kind, int n_refs, int invert, int zero,
+                                  const float* host_refs, cudaStream_t stream) {
+  using namespace mcf;
+  if (n_tables < 1 || n_tables > kMaxTables || rows < 1 || cols < kTileCols ||
+      cols % kTileCols || valid > rows * cols ||
+      (rows * cols + kTileCols - 1) / kTileCols > INT32_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  for (int i = 0; i < n_tables; ++i)
+    if (!aligned16(bases[i])) return static_cast<int>(cudaErrorInvalidValue);
+  if (zero) {
+    const cudaError_t err = cudaMemsetAsync(out, 0, sizeof(int), stream);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (valid <= 0) return static_cast<int>(cudaSuccess);
+  const int units = static_cast<int>((valid + kTileCols - 1) / kTileCols);
+  const RowTables tables = load_tables(bases, slots, ends, n_tables);
+  const Refs refs = load_refs(host_refs);
+  switch (kind) {
+    case kLsb:
+      launch_sense_popcount<kLsb>(tables, n_tables, out, cols, valid, units, refs, n_refs, invert, stream);
+      break;
+    case kMsb:
+      launch_sense_popcount<kMsb>(tables, n_tables, out, cols, valid, units, refs, n_refs, invert, stream);
+      break;
+    case kSbr:
+      launch_sense_popcount<kSbr>(tables, n_tables, out, cols, valid, units, refs, n_refs, invert, stream);
+      break;
+    case kParity:
+      // one- and two-reference parity reads (TLC AND3 / OR3, reduced-MLC
+      // AND) get their own instances, as in mcf_mlc_sense
+      if (n_refs == 1)
+        launch_sense_popcount<kParity, 1>(tables, n_tables, out, cols, valid, units, refs, n_refs, invert, stream);
+      else if (n_refs == 2)
+        launch_sense_popcount<kParity, 2>(tables, n_tables, out, cols, valid, units, refs, n_refs, invert, stream);
+      else
+        launch_sense_popcount<kParity>(tables, n_tables, out, cols, valid, units, refs, n_refs, invert, stream);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels for the MCFlash hot paths, each beside its
 plain PyTorch version.
 
-- ``mlc_sense``: sense + lane-major pack (``csrc/mlc_sense.cu``).
+- ``mlc_sense``: sense + lane-major pack, and sense + count in one pass
+  (``csrc/mlc_sense.cu``).
 - ``fused``: sense -> reduce (-> popcount) megakernels (``csrc/fused.cu``).
 - ``bitops``: and/or/xor folds of operands passed by pointer (``csrc/bitops.cu``).
 - ``popcount``: per-row popcount, optionally masked (``csrc/popcount.cu``).

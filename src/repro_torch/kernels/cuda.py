@@ -39,7 +39,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: launches per kernel wrapper (zero them with :func:`reset_launches`)
 launches: Dict[str, int] = {"mlc_sense": 0, "sense_reduce": 0,
                             "sense_reduce_popcount": 0, "bitwise_reduce": 0,
-                            "popcount_rows": 0}
+                            "popcount_rows": 0, "sense_popcount": 0}
 #: per-source ``nvcc`` output (register / spill report) of the last build
 build_log: Dict[str, str] = {}
 
@@ -56,6 +56,8 @@ _SIGNATURES = {
                                             _I, _I, _I, _I, _I, _P, _P]),
     "mcf_bitwise_reduce": ("bitops", [_P, _I, _P, _I64, _I, _I, _P]),
     "mcf_popcount_rows": ("popcount", [_P, _P, _P, _I64, _I64, _P]),
+    "mcf_sense_popcount": ("mlc_sense", [_P, _P, _P, _I, _P, _I64, _I64,
+                                         _I64, _I, _I, _I, _I, _P, _P]),
 }
 
 #: operand pointers one ``mcf_bitwise_reduce`` launch takes (``kMaxOperands``

@@ -15,11 +15,22 @@ identity table.  Rows need no padding.
 
 On the CPU the wrapper runs :data:`reference`, the plain version, on the
 rows gathered by their tables.
+
+:func:`sense_popcount` (``mcf_sense_popcount``, same source) senses the
+same rows to one count, in one pass: what the executor runs for a counted
+root whose plan is one sense, in place of ``mlc_sense`` and a masked
+``popcount_rows``.  It reads 4 B per counted cell and writes one int, so
+its least time is ``n_bits * 4 B`` over the memory rate.  A count needs no
+packing: each thread streams 16-byte loads of consecutive cells, a grid of
+the blocks the card holds at once strides over 4096-cell units of the rows
+in table order, and each block adds its sum to the total with one atomic.
+Cells past ``n_bits`` are neither read nor counted, so no tail mask is
+read.  Its plain version is :data:`reference_popcount`.
 """
 from __future__ import annotations
 
 from itertools import accumulate
-from typing import Sequence, Union
+from typing import Optional, Sequence, Union
 
 import torch
 
@@ -27,8 +38,9 @@ from repro_torch.kernels import cuda, ref
 from repro_torch.kernels.ref import TILE_COLS, WORD_BITS
 from repro_torch.kernels.rows import Rows, identity
 
-#: the plain PyTorch version of this kernel
+#: the plain PyTorch versions of these kernels
 reference = ref.mlc_sense
+reference_popcount = ref.sense_popcount
 
 
 def mlc_sense(vth: Union[torch.Tensor, Rows], refs: Sequence[float], *,
@@ -60,4 +72,44 @@ def mlc_sense(vth: Union[torch.Tensor, Rows], refs: Sequence[float], *,
                             cuda.TableEnds(*ends), len(part), dst, ends[-1],
                             c, kind_code, n_refs, int(invert), refs_c)
             dst += ends[-1] * words * 4        # int32 words
+    return out
+
+
+def sense_popcount(vth: Union[torch.Tensor, Rows], refs: Sequence[float], *,
+                   kind: str, invert: bool = False, n_refs: int = 0,
+                   n_bits: Optional[int] = None) -> torch.Tensor:
+    """Sense R Vth rows with one read kind and count, in one pass -> 0-d
+    int32: the cells among the first ``n_bits`` (row after row, in table
+    order; all where None) that sense to 1, which is the popcount of
+    :func:`mlc_sense`'s words under the tail mask of ``n_bits``."""
+    dense = isinstance(vth, torch.Tensor)
+    r, c = vth.shape if dense else (vth.n_rows, vth.cols)
+    if c % TILE_COLS:
+        raise ValueError(f"cols {c} must be a multiple of {TILE_COLS}")
+    valid = r * c if n_bits is None else min(max(n_bits, 0), r * c)
+    if vth.device.type == "cpu":
+        return reference_popcount(vth if dense else vth.gather(), list(refs),
+                                  kind, invert=invert, n_refs=n_refs or None,
+                                  n_bits=valid)
+    if dense:
+        vth = identity(cuda.check_cuda("vth", vth, torch.float32))
+    # one launch per MAX_TABLES tables that hold a counted cell: the first
+    # zeroes the total, the others add to it
+    parts, row0, cap = [], 0, cuda.MAX_TABLES
+    for s in range(0, len(vth), cap):
+        part = vth if len(vth) <= cap else vth[s:s + cap]
+        ends = list(accumulate(int(t.shape[0]) for t in part.slots))
+        if ends[-1] and valid > row0 * c:
+            parts.append((part, ends, min(valid - row0 * c, ends[-1] * c)))
+        row0 += ends[-1]
+    if not parts:
+        return torch.zeros((), dtype=torch.int32, device=vth.device)
+    out = torch.empty((), dtype=torch.int32, device=vth.device)
+    kind_code, n_refs, refs_c = cuda.sense_args(refs, kind, n_refs)
+    for k, (part, ends, cells) in enumerate(parts):
+        bases, slots = cuda.table_args(part)
+        cuda.launch("sense_popcount", "mcf_sense_popcount", bases, slots,
+                    cuda.TableEnds(*ends), len(part), out.data_ptr(),
+                    ends[-1], c, cells, kind_code, n_refs, int(invert),
+                    int(k == 0), refs_c)
     return out

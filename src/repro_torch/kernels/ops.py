@@ -9,6 +9,8 @@ plain version for CPU tensors.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.kernels import fused as _fused
@@ -17,8 +19,8 @@ from repro_torch.kernels.bitops import bitwise_reduce
 from repro_torch.kernels.fused import Operands
 from repro_torch.kernels.popcount import popcount_rows
 
-__all__ = ["sense_plan", "sense_reduce_plan", "sense_reduce_popcount_plan",
-           "bitwise_reduce", "popcount_rows"]
+__all__ = ["sense_plan", "sense_popcount_plan", "sense_reduce_plan",
+           "sense_reduce_popcount_plan", "bitwise_reduce", "popcount_rows"]
 
 
 def _plan_parts(plan) -> tuple[tuple, str, bool, int]:
@@ -30,6 +32,15 @@ def sense_plan(vth: Operands, plan) -> torch.Tensor:
     refs, kind, sense_invert, n_refs = _plan_parts(plan)
     return _mlc.mlc_sense(vth, refs, kind=kind, invert=sense_invert,
                           n_refs=n_refs)
+
+
+def sense_popcount_plan(vth: Operands, plan,
+                        n_bits: Optional[int] = None) -> torch.Tensor:
+    """Sense R rows under a ReadPlan and count the first ``n_bits`` cells'
+    ones in the same pass -> 0-d int32."""
+    refs, kind, sense_invert, n_refs = _plan_parts(plan)
+    return _mlc.sense_popcount(vth, refs, kind=kind, invert=sense_invert,
+                               n_refs=n_refs, n_bits=n_bits)
 
 
 def sense_reduce_plan(vth: Operands, plan, *, op: str,

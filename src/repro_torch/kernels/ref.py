@@ -96,6 +96,16 @@ def mlc_sense(vth: torch.Tensor, refs: Refs, kind: str,
     return pack_bits(sense_bits(vth, refs, kind, invert, n_refs))
 
 
+def sense_popcount(vth: torch.Tensor, refs: Refs, kind: str,
+                   invert: bool = False, n_refs: int | None = None,
+                   n_bits: int | None = None) -> torch.Tensor:
+    """0-d int32 count of the cells of (R, C) Vth that sense to 1 (as
+    :func:`mlc_sense` reads them) among the first ``n_bits``, row after
+    row (all of them where None): the words' masked popcount, unpacked."""
+    bits = sense_bits(vth, refs, kind, invert, n_refs).reshape(-1)
+    return bits[:n_bits].sum(dtype=torch.int32)
+
+
 def _combine(acc: torch.Tensor, nxt: torch.Tensor, op: str) -> torch.Tensor:
     if op == "and":
         return acc & nxt

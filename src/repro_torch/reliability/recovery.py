@@ -182,7 +182,7 @@ class ReliabilityManager:
         run = ex._build(plan, (False,), None)
         group_rows, fused_rows = ex.unit_rows(plan, None)
         return run(group_rows, fused_rows,
-                   (sess.tail_mask(n_bits, plan.out_words),))[0]
+                   (sess.tail_mask(n_bits, plan.out_words),), (n_bits,))[0]
 
     def _mismatches(self, packed, want: np.ndarray, n_bits: int) -> int:
         return int(np.count_nonzero(self._sample(packed, n_bits) != want))

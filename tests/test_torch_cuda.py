@@ -38,7 +38,8 @@ def test_cuda_kernels_match_plain_versions(card):
     """Every kind x op x inversion, rows not a multiple of 8, bit-31 words:
     the kernels equal their plain versions bit for bit, on dense stacks
     (the identity table) and on rows read in place from two shards through
-    out-of-order slot tables with a repeated slot."""
+    out-of-order slot tables with a repeated slot; ``sense_popcount`` also
+    over ragged tails and over 40 tables (two launches into one total)."""
     gen = torch.Generator().manual_seed(0)
     vth = (torch.randn(3, 5, 8192, generator=gen) * 2 + 2).to(card)
     mask = _words(gen, (5, 256), card)
@@ -49,8 +50,22 @@ def test_cuda_kernels_match_plain_versions(card):
               ([9, 0, 4, 4, 10], [6, 1, 3, 0, 2], [3, 2, 8, 7, 5])]
     rows = Rows([shards[0], shards[1], shards[0]], tables)
     gathered = rows.gather().reshape(3, 5, 8192)
+    many = Rows([shards[i % 2] for i in range(40)],
+                [torch.tensor([i % 7, 6 - i % 7], dtype=torch.int32,
+                              device=card) for i in range(40)])
     for (kind, refs), invert in itertools.product(KIND_CASES, (False, True)):
         n_refs = len(refs)
+        for vth_rows, dense in ((vth[0], vth[0]),
+                                (rows, gathered.reshape(15, -1)),
+                                (many, many.gather())):
+            cells = dense.numel()
+            for n_bits in (None, cells - 4096 - 77, 20 * 8192 + 5, 100, 0):
+                assert torch.equal(
+                    mlc_sense.sense_popcount(vth_rows, refs, kind=kind,
+                                             invert=invert, n_refs=n_refs,
+                                             n_bits=n_bits),
+                    mlc_sense.reference_popcount(dense, refs, kind, invert,
+                                                 n_refs, n_bits))
         assert torch.equal(
             mlc_sense.mlc_sense(vth[0], refs, kind=kind, invert=invert,
                                 n_refs=n_refs),
@@ -81,7 +96,8 @@ def test_cuda_kernels_match_plain_versions(card):
 @pytest.mark.gpu
 def test_session_on_the_card_launches_every_kernel(card):
     """A small session on the card equals the numpy oracle and goes through
-    all five kernels."""
+    all six kernels: a fused chain's count, a combine root's count and a
+    pair's count sensed in one pass."""
     rng = np.random.default_rng(0)
     n = 3 * 8192 + 17
     raw = [(rng.random(n) < 0.6).astype(np.uint8) for _ in range(6)]
@@ -101,7 +117,9 @@ def test_session_on_the_card_launches_every_kernel(card):
     mixed = (v[0] & v[1]) | (v[2] ^ v[3])
     got = sess.materialize(mixed, unpacked=True).cpu().numpy().astype(bool)
     np.testing.assert_array_equal(got, (b[0] & b[1]) | (b[2] ^ b[3]))
+    assert sess.popcount(mixed) == int(((b[0] & b[1]) | (b[2] ^ b[3])).sum())
     assert sess.popcount(v[4] & v[5]) == int((b[4] & b[5]).sum())
+    assert sess.sense_counted_roots == 1
     assert all(count > 0 for count in cuda.launches.values()), cuda.launches
 
 
