@@ -29,7 +29,14 @@
    through an out-of-order slot table) and under ``lsb``, beside the
    ``mlc_sense`` then masked ``popcount_rows`` it replaces there.  Prints
    the host's enqueue time per call of the word kernels' wrappers and of
-   each part of their launch path.
+   each part of their launch path.  Then the drained root of the daypair
+   cell (``check_drain``): ``sense_drain`` over its 2,176 rows through an
+   out-of-order slot table, in chunks of ``DRAIN_CHUNK_PAGES`` rows, with
+   and without a tail masked mid-chunk, against ``mlc_sense`` then the
+   mask and timed beside the one-shot sense, mask and copy against its
+   bound; and ``materialize_async`` of day pairs of that size on a
+   session, each against numpy, launching one sense a chunk and nothing
+   else.
 3. Drives the compute-session main path, ``ComputeSession(device="cuda")``
    on the default SSD (16 channels x 8 dies, 16 kB pages): the seven
    Table-1 ops and the TLC AND3/OR3 fast paths under mlc, tlc and
@@ -349,6 +356,14 @@ SEGMENT_ROWS = 1875
 SEGMENT_REFS = [2.0]
 #: float32 compares per cell of each read kind (parity: one per reference)
 KIND_COMPARES = {"lsb": 1, "msb": 2, "sbr": 4}
+#: the daypair cell's drained root: one MLC day pair of 17 * 2**24 users,
+#: 2,176 wordlines of 131072 cells, sensed and copied host-ward in chunks
+DAYPAIR_ROWS = 2176
+#: the card's host link, one direction: PCIe 5.0 x16 (the H100 SXM data
+#: sheet gives 128 GB/s both ways)
+PCIE_BYTES_PER_S = 64e9
+#: timed calls per round, and rounds, of the drained and one-shot root
+DRAIN_ITERS, DRAIN_ROUNDS = 20, 3
 
 
 def fail(msg: str) -> None:
@@ -839,6 +854,145 @@ def time_kernels(gen: torch.Generator, errs: dict, fused_n: int,
         words_then_count_ops_per_call=dev["ops"])
     out["host_enqueue_us"] = host_split(pair, flat, tail)
     del leaf, wide, wide_mask, shards, group, chain, seg, seg_mask
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_drain(errs: dict) -> dict:
+    """A drained root whose plan is one sense at the daypair cell's shape.
+
+    ``sense_drain`` over 2,176 rows read through an out-of-order slot table,
+    in chunks of ``DRAIN_CHUNK_PAGES`` rows (unmasked, and with the rows
+    from 100 before the end ANDed with a mask, mid-chunk): its pinned host
+    words equal ``mlc_sense`` then the mask, under lsb, msb and sbr, and it
+    counts one sense launch a chunk.  Then it is timed, wall clock to its
+    last copy, beside the one-shot drain the executor ran before (sense,
+    AND with the all-ones tail mask, one copy), against its bound.  Then a
+    session on the default SSD drains two day pairs of that size (2,176
+    pages, and 1,000 bits fewer, whose last chunk is masked) through
+    ``materialize_async`` under and / or / xor: each equals numpy, and the
+    launches, zeroed just before each call, are one sense a chunk and
+    nothing else.  Folds the differences into ``errs``."""
+    from repro_torch.api.executor import DRAIN_CHUNK_PAGES
+    from repro_torch.api.session import ComputeSession
+    from repro_torch.kernels import cuda, mlc_sense
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(6)
+    rows = shard_tables(gen, [torch.randn(DAYPAIR_ROWS + 128, COLS,
+                                          generator=gen, device="cuda") * 2 + 2],
+                        DAYPAIR_ROWS, 1)
+    per_row = COLS // 32
+    words = DAYPAIR_ROWS * per_row
+    chunks = -(-DAYPAIR_ROWS // DRAIN_CHUNK_PAGES)
+    stream = torch.cuda.Stream()
+    host = torch.empty(words, dtype=torch.int32, pin_memory=True)
+    mask = random_words(gen, (words,))
+    err = 0
+    for kind, refs in KIND_REFS.items():
+        want = mlc_sense.mlc_sense(rows, refs, kind=kind,
+                                   n_refs=len(refs)).reshape(-1)
+        for mask_row in (DAYPAIR_ROWS, DAYPAIR_ROWS - 100):
+            host.fill_(0x5A5A5A5A)
+            before = cuda.launches["mlc_sense"]
+            made = mlc_sense.sense_drain(
+                rows, refs, kind=kind, n_refs=len(refs), host=host,
+                chunk_rows=DRAIN_CHUNK_PAGES, copy_stream=stream,
+                mask=mask if mask_row < DAYPAIR_ROWS else None,
+                mask_row=mask_row)
+            stream.synchronize()
+            launched = cuda.launches["mlc_sense"] - before
+            if made != chunks or launched != chunks:
+                fail(f"sense_drain ({kind}) made {made} chunks in {launched} "
+                     f"sense launches, expected {chunks}")
+            expected = want.clone()
+            expected[mask_row * per_row:] &= mask[mask_row * per_row:]
+            err = max(err, word_err(host, expected.cpu()))
+    sync()
+    if err:
+        fail(f"sense_drain differs from mlc_sense then the mask at the daypair "
+             f"shape by {err}")
+    errs["mlc_sense"] = max(errs["mlc_sense"], err)
+
+    lsb = KIND_REFS["lsb"]
+    ones = torch.full((words,), -1, dtype=torch.int32, device="cuda")
+    one_host = torch.empty(words, dtype=torch.int32, pin_memory=True)
+
+    def one_shot():
+        out = mlc_sense.mlc_sense(rows, lsb, kind="lsb", n_refs=1)
+        one_host.copy_(out.reshape(-1) & ones, non_blocking=True)
+        sync()
+
+    def drained():
+        mlc_sense.sense_drain(rows, lsb, kind="lsb", n_refs=1, host=host,
+                              chunk_rows=DRAIN_CHUNK_PAGES, copy_stream=stream)
+        stream.synchronize()
+
+    def wall_ms(fn) -> float:
+        t = time.perf_counter()
+        for _ in range(DRAIN_ITERS):
+            fn()
+        return (time.perf_counter() - t) / DRAIN_ITERS * 1e3
+
+    for fn in (one_shot, drained):
+        fn()
+        fn()
+    times: dict = {"one_shot_ms": [], "drained_ms": []}
+    for r in range(DRAIN_ROUNDS):
+        for name, fn in ((("one_shot_ms", one_shot), ("drained_ms", drained))
+                         if r % 2 == 0 else
+                         (("drained_ms", drained), ("one_shot_ms", one_shot))):
+            times[name].append(wall_ms(fn))
+    if not torch.equal(host, one_host):
+        fail("the drained and the one-shot lsb words differ")
+    sense_ms = DAYPAIR_ROWS * COLS * (4 + 1 / 8) / H100_SXM_HBM_BYTES_PER_S * 1e3
+    copy_ms = words * 4 / PCIE_BYTES_PER_S * 1e3
+    drained_ms = float(np.median(times["drained_ms"]))
+    kernel = {"rows": DAYPAIR_ROWS, "chunk_rows": DRAIN_CHUNK_PAGES,
+              "chunks": chunks, **times,
+              "sense_bound_ms": sense_ms, "copy_bound_ms": copy_ms,
+              "bound_ms": max(sense_ms, copy_ms),
+              "dtoh_gb_per_s": words * 4 / drained_ms / 1e6}
+    del rows, ones, mask
+    torch.cuda.empty_cache()
+
+    sess = ComputeSession(device="cuda", seed=6)
+    session = {}
+    full = DAYPAIR_ROWS * COLS
+    for n_bits in (full, full - 1000):
+        raw = (torch.rand(2, n_bits, generator=gen, device="cuda")
+               < 0.5).to(torch.uint8)
+        a, b = sess.write_pair(f"a{n_bits}", raw[0], f"b{n_bits}", raw[1])
+        bits = np.zeros((2, full), dtype=bool)
+        bits[:, :n_bits] = raw.cpu().numpy().astype(bool)
+        del raw
+        for op, expr in (("and", a & b), ("or", a | b), ("xor", a ^ b)):
+            cells = oracle(op, bits[0], bits[1])
+            cells[n_bits:] = False
+            want = lane_major_words(cells)
+            drains = sess.pipelined_drains
+            sync()
+            cuda.reset_launches()
+            got = sess.materialize_async(expr).result()
+            launches = {k: n for k, n in cuda.launches.items() if n}
+            if launches != {"mlc_sense": chunks}:
+                fail(f"materialize_async({op}) of {n_bits} bits launched "
+                     f"{launches}, expected {chunks} mlc_sense")
+            if sess.pipelined_drains != drains + 1:
+                fail(f"materialize_async({op}) of {n_bits} bits did not drain "
+                     "in chunks")
+            if got.shape != want.shape or not np.array_equal(got, want):
+                bad = (int((got != want).sum()) if got.shape == want.shape
+                       else -1)
+                fail(f"materialize_async({op}) of {n_bits} bits: {bad} words "
+                     "differ from the numpy oracle")
+            session[f"{op} {n_bits}"] = launches
+    stats = sess.stats()
+    out = {"kernel": kernel, "session_launches": session,
+           "pipelined_drains": stats["pipelined_drains"],
+           "drain_chunks": stats["drain_chunks"]}
+    del sess
+    gc.collect()
     torch.cuda.empty_cache()
     return out
 
@@ -3186,6 +3340,12 @@ def main() -> int:
           + json.dumps(host), flush=True)
     record["host_enqueue_us"] = host
     torch.cuda.empty_cache()
+    t = time.perf_counter()
+    drain = check_drain(errs)
+    record["drain"] = drain
+    print(f"drained root at the daypair shape ({gpu}): bit-exact "
+          f"({time.perf_counter() - t:.1f} s); " + json.dumps(drain),
+          flush=True)
 
     cuda.reset_launches()
     run = main_path()

@@ -36,6 +36,18 @@ class Backend:
         plan -> (R, C//32) packed int32."""
         return kops.sense_plan(vth, plan)
 
+    def sense_drain(self, vth: Vth, plan: ReadPlan, host: torch.Tensor,
+                    chunk_rows: int, copy_stream=None,
+                    mask: Optional[torch.Tensor] = None,
+                    mask_row: int = 0) -> int:
+        """R Vth rows + read plan -> :meth:`sense`'s words, drained into the
+        flat ``host`` buffer ``chunk_rows`` rows at a time, each chunk's copy
+        (on ``copy_stream``, on a card) starting as soon as it is sensed;
+        words of rows from ``mask_row`` on are ANDed with ``mask`` first.
+        Returns the chunks."""
+        return kops.sense_drain_plan(vth, plan, host, chunk_rows, copy_stream,
+                                     mask, mask_row)
+
     def sense_popcount(self, vth: Vth, plan: ReadPlan,
                        n_bits: Optional[int] = None) -> torch.Tensor:
         """R Vth rows + read plan -> 0-d int32: the ones among the first

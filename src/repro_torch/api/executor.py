@@ -11,7 +11,10 @@ DAG into a static :class:`ExecPlan`, exactly as the JAX package does:
    root, only the counts leave the kernel).  Chains longer than
    ``MAX_FUSED_OPERANDS`` split into several passes.  A counted root
    whose plan is one sense (one group of one item) is sensed and counted
-   in one ``sense_popcount`` call, its words never written.
+   in one ``sense_popcount`` call, its words never written; such a root
+   drained to the host uncounted (:meth:`Executor.run_drained`) is sensed
+   ``DRAIN_CHUNK_PAGES`` pages at a time, each chunk's copy to the host
+   starting as soon as the chunk is written.
 3. **Grouping** buckets every remaining sense by (:class:`ReadPlan`, die),
    so all same-plan senses on one die run in ONE batched kernel call.
 4. **Scheduling** packs the per-die groups and fused calls into
@@ -52,6 +55,7 @@ from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.api.graph import ASSOCIATIVE, BASE_OF, Leaf, Node, Op
+from repro_torch.api.hostio import ChunkedDrain
 from repro_torch.core import tlc as _tlc
 from repro_torch.core.mcflash import ReadPlan
 from repro_torch.flash.device import PAGE_READ_OP
@@ -60,7 +64,8 @@ from repro_torch.obs.trace import traced
 from repro_torch.verify.invariants import check_overlap_consistency
 
 __all__ = ["ExecPlan", "Executor", "ProgramStep", "Wave", "WaveCost",
-           "MAX_FUSED_OPERANDS", "schedule_programs_into_idle_waves"]
+           "DRAIN_CHUNK_PAGES", "MAX_FUSED_OPERANDS",
+           "schedule_programs_into_idle_waves"]
 
 WordlineKey = Tuple[int, int, int]
 
@@ -69,6 +74,12 @@ WordlineKey = Tuple[int, int, int]
 #: kernel keeps one word per operand in registers and no operand tile in
 #: shared memory, so on the card this shapes plans only.
 MAX_FUSED_OPERANDS = 32
+
+#: pages a drained root whose plan is one sense is sensed in at a time, each
+#: chunk copied to the host while the next is sensed: large enough that a
+#: chunk's copy runs at the link's rate, small enough that the first sense,
+#: which no copy overlaps, is short
+DRAIN_CHUNK_PAGES = 544
 
 
 @dataclasses.dataclass
@@ -645,6 +656,16 @@ class Executor:
         """Execute a canonical DAG -> packed 1-D int32 words (tail masked)."""
         return self._execute_many([node], [n_bits], (False,))[0]
 
+    def run_drained(self, node: Node, n_bits: int,
+                    drain: ChunkedDrain) -> Optional[torch.Tensor]:
+        """Execute a canonical DAG whose words go to the host -> None where
+        its root, whose plan is one sense (:func:`_root_drains_in_chunks`),
+        was sensed into ``drain`` in chunks of ``DRAIN_CHUNK_PAGES`` pages,
+        each chunk's copy starting as soon as the chunk is sensed, so it
+        overlaps the next chunk's sense; else the words, as :meth:`run`
+        gives them."""
+        return self._execute_many([node], [n_bits], (False,), drain=drain)[0]
+
     def run_popcount(self, node: Node, n_bits: int) -> torch.Tensor:
         """Execute a canonical DAG -> 0-d int32 popcount (fused into the root
         kernel when the plan allows)."""
@@ -705,7 +726,10 @@ class Executor:
     # -- internals ---------------------------------------------------------------
     def _execute_many(self, nodes: List[Node], n_bits_list: List[int],
                       popcounts: Tuple[bool, ...],
-                      rids: Optional[List[int]] = None):
+                      rids: Optional[List[int]] = None,
+                      drain: Optional[ChunkedDrain] = None):
+        """Lower, verify, account and dispatch: one output per root, None
+        for a root sensed into ``drain`` (:func:`_root_drains_in_chunks`)."""
         sess = self.session
         tracer = sess.trace
         dev = sess.device
@@ -730,6 +754,7 @@ class Executor:
         layout = self._placement_layout(plan)
         counted = _root_counts_in_sense(plan, popcounts)
         sess.metrics.counter("sense_counted_roots").add(int(counted))
+        chunked = drain is not None and _root_drains_in_chunks(plan, popcounts)
         with traced(tracer, "account", "account-waves") as span:
             if span is not None:
                 span.args["waves"] = len(plan.waves)
@@ -786,7 +811,14 @@ class Executor:
                         dict.fromkeys(_encoding_of(p) for p in plans))
                     span.args["refs"] = [len(p.refs) for p in plans]
                     span.args["counted"] = counted
-                return fn(group_rows, fused_rows, masks, tuple(n_bits_list))
+                outs = fn(group_rows, fused_rows, masks, tuple(n_bits_list),
+                          drain if chunked else None)
+                if chunked and span is not None:
+                    span.args["chunks"] = drain.chunks
+        if chunked:
+            sess.metrics.counter("pipelined_drains").add(1)
+            sess.metrics.counter("drain_chunks").add(drain.chunks)
+        return outs
 
     def unit_rows(self, plan: ExecPlan, layout: Optional[tuple]
                    ) -> Tuple[Tuple[Rows, ...], Tuple[Rows, ...]]:
@@ -940,7 +972,10 @@ class Executor:
         inputs: per sense group and per fused step the :class:`Rows` it
         senses in place (:meth:`unit_rows`: shard buffers and slot tables,
         one table per fused operand), one packed padding mask and the bit
-        count per batch root.  Returns a tuple of outputs, one per root.  A
+        count per batch root, and ``drain`` (a
+        :class:`~repro_torch.api.hostio.ChunkedDrain`) where the root drains
+        in chunks (:func:`_root_drains_in_chunks`).  Returns a tuple of
+        outputs, one per root; with ``drain``, ``(None,)``.  A
         runner-cache miss builds it, and counts the one trace; the recovery
         ladder builds one uncached over a plan with shifted read plans and
         counts none.
@@ -957,7 +992,12 @@ class Executor:
         fast path on the shard's stream, and so does a counted root whose
         plan is one sense (:func:`_root_counts_in_sense`): one
         ``sense_popcount`` over its group's rows, which counts the root's
-        first ``n_bits`` cells and needs no mask.  Unplaced (``layout``
+        first ``n_bits`` cells and needs no mask.  So does a drained root
+        whose plan is one sense: one ``sense_drain`` over its group's rows
+        senses them ``DRAIN_CHUNK_PAGES`` pages at a time into the drain's
+        host buffer, each chunk's copy on the drain's copy stream after the
+        chunk, and only a chunk that holds bits past ``n_bits`` is ANDed with
+        the mask.  Unplaced (``layout``
         None), every unit's slot is None, and the arena's placement methods
         do nothing: everything runs on the current stream.
 
@@ -979,7 +1019,20 @@ class Executor:
             group_slot = [slot for _, slot in layout[0]]
             fused_slot = dict(zip(fused_pos, (slot for _, slot in layout[1])))
 
-        def run(group_rows, fused_rows, masks, n_bits):
+        def run(group_rows, fused_rows, masks, n_bits, drain=None):
+            if drain is not None:
+                slot = group_slot[0]
+                rows = group_rows[0]
+                # the first page holding padding (out_pages when none does)
+                tail = n_bits[0] // (plan.out_words // plan.out_pages * 32)
+                mask = (colocate(masks[0], slot) if tail < plan.out_pages
+                        else None)
+                host, copy_stream = drain.target(plan.out_words, rows.device)
+                with on_slot(slot):
+                    drain.chunks = backend.sense_drain(
+                        rows, plan.groups[0].plan, host, DRAIN_CHUNK_PAGES,
+                        copy_stream, mask, tail)
+                return (None,)
             if counted:
                 slot = group_slot[0]
                 with on_slot(slot):
@@ -1073,14 +1126,26 @@ def _root_fuses_popcount(plan: ExecPlan, popcounts: Tuple[bool, ...]) -> bool:
             and plan.steps[-1].fused is not None)
 
 
+def _root_is_one_sense(plan: ExecPlan) -> bool:
+    """Whether the plan is a single root with no combine step and one sense
+    group of one item, that item being the root."""
+    return (len(plan.all_roots) == 1 and not plan.steps
+            and len(plan.groups) == 1 and len(plan.groups[0].items) == 1
+            and plan.groups[0].items[0].pid == plan.root)
+
+
 def _root_counts_in_sense(plan: ExecPlan,
                           popcounts: Tuple[bool, ...]) -> bool:
     """Whether the root is sensed and counted in one ``sense_popcount``:
-    only on a single-root counted plan with no combine step and one sense
-    group of one item, that item being the root."""
-    return (len(plan.all_roots) == 1 and popcounts[0] and not plan.steps
-            and len(plan.groups) == 1 and len(plan.groups[0].items) == 1
-            and plan.groups[0].items[0].pid == plan.root)
+    only on a counted plan whose root is one sense."""
+    return popcounts[0] and _root_is_one_sense(plan)
+
+
+def _root_drains_in_chunks(plan: ExecPlan,
+                           popcounts: Tuple[bool, ...]) -> bool:
+    """Whether a drained root is sensed in chunks, each copied to the host
+    as it is made: only on an uncounted plan whose root is one sense."""
+    return not popcounts[0] and _root_is_one_sense(plan)
 
 
 def _fused_positions(plan: ExecPlan) -> Dict[int, int]:

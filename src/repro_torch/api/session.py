@@ -75,6 +75,8 @@ _SESSION_COUNTERS = (
     ("sensing_phases", "sensing phases of those encoded units"),
     ("sense_counted_roots",
      "counted roots sensed and counted in one sense_popcount call"),
+    ("pipelined_drains", "drained roots sensed and copied host-ward in chunks"),
+    ("drain_chunks", "chunks those roots were sensed and copied in"),
 )
 
 #: per-shape tail-mask cache bound
@@ -331,8 +333,18 @@ class ComputeSession:
     def materialize_async(self, expr: BitVector) -> DrainHandle:
         """Like :meth:`materialize`, but stream the packed result to the host
         through the bounded drain queue; ``handle.result()`` (or
-        :meth:`drain`) returns it as a numpy uint32 array."""
-        packed = self._checked_words(self._canonical([expr])[0], expr.n_bits)
+        :meth:`drain`) returns it as a numpy uint32 array.  Without the
+        reliability layer, a root whose plan is one sense drains in chunks
+        as it is sensed (:meth:`Executor.run_drained`); checkword recovery
+        needs the whole words first."""
+        node = self._canonical([expr])[0]
+        if self.reliability is None:
+            drain = self.host_queue.open()
+            packed = self.executor.run_drained(node, expr.n_bits, drain)
+            if packed is None:
+                return self.host_queue.admit(drain)
+        else:
+            packed = self._checked_words(node, expr.n_bits)
         return self.host_queue.submit(packed, int(packed.shape[-1]) * 4)
 
     def drain(self) -> List[np.ndarray]:
@@ -478,6 +490,8 @@ class ComputeSession:
             "encoded_sense_units": self.encoded_sense_units,
             "sensing_phases": self.sensing_phases,
             "sense_counted_roots": self.sense_counted_roots,
+            "pipelined_drains": self.pipelined_drains,
+            "drain_chunks": self.drain_chunks,
             "host_drain": {"submits": self.host_drain_submits,
                            "blocks": self.host_drain_blocks,
                            "pending": len(self.host_queue),

@@ -13,17 +13,35 @@
 // written or read back, no mask read. A count needs no lane-major packing, so
 // each thread streams 16-byte loads of consecutive cells and adds its bits;
 // a grid of the blocks the card holds at once strides over 4096-cell units.
+//
+// Sense + drain (mcf_mlc_sense_drain): the same R rows to the same words,
+// sensed a chunk of rows at a time, each chunk's words copied to pinned host
+// memory on a second stream as soon as the chunk is written, so a chunk's
+// copy runs while the next is sensed. The launches, events and copies of all
+// chunks are enqueued by one call: the host pays for one call, not one per
+// chunk. A chunk that holds bits past the result's end is ANDed with the
+// tail mask as its words are written, in the same launch.
 #include "sense.cuh"
 
 namespace mcf {
+
+// Where a launch writes: output rows from `row0` on (a chunk of the rows, or
+// all of them), and with `mask` the words of rows from `mask_row` on ANDed
+// with the mask's words at the same offsets.
+struct Span {
+  int64_t row0;
+  const uint32_t* mask;
+  int64_t mask_row;
+};
 
 template <int KIND, int NREFS = kMaxRefs>
 __global__ void __launch_bounds__(kBlock)
 mlc_sense_kernel(const RowTables tables, int n_tables,
                  uint32_t* __restrict__ out, int64_t words,
-                 int64_t blocks_per_row, Refs refs, int n_refs, int invert) {
+                 int64_t blocks_per_row, Span span, Refs refs, int n_refs,
+                 int invert) {
   __shared__ const float* src;
-  const int64_t row = blockIdx.x / blocks_per_row;
+  const int64_t row = span.row0 + blockIdx.x / blocks_per_row;
   const int64_t wcol = (blockIdx.x % blocks_per_row) * kBlock + threadIdx.x;
   if (threadIdx.x == 0) {
     int i = 0;
@@ -33,9 +51,47 @@ mlc_sense_kernel(const RowTables tables, int n_tables,
   }
   __syncthreads();
   if (wcol >= words) return;
-  out[row * words + wcol] = sense_word<KIND, NREFS>(src, wcol / kLanes,
-                                             static_cast<int>(wcol % kLanes),
-                                             refs, n_refs, invert != 0);
+  uint32_t word = sense_word<KIND, NREFS>(src, wcol / kLanes,
+                                          static_cast<int>(wcol % kLanes),
+                                          refs, n_refs, invert != 0);
+  if (span.mask != nullptr && row >= span.mask_row)
+    word &= __ldg(span.mask + row * words + wcol);
+  out[row * words + wcol] = word;
+}
+
+// Launch the instance of `kind` over output rows [span.row0, span.row0 + rows).
+inline cudaError_t launch_mlc_sense(const RowTables& tables, int n_tables,
+                                    uint32_t* out, const Span& span, int64_t rows,
+                                    int64_t cols, int kind, const Refs& refs,
+                                    int n_refs, int invert,
+                                    cudaStream_t stream) {
+  const int64_t words = cols / kWordBits;
+  const int64_t blocks_per_row = (words + kBlock - 1) / kBlock;
+  const unsigned int grid = static_cast<unsigned int>(rows * blocks_per_row);
+  switch (kind) {
+    case kLsb:
+      mlc_sense_kernel<kLsb><<<grid, kBlock, 0, stream>>>(tables, n_tables, out, words, blocks_per_row, span, refs, n_refs, invert);
+      break;
+    case kMsb:
+      mlc_sense_kernel<kMsb><<<grid, kBlock, 0, stream>>>(tables, n_tables, out, words, blocks_per_row, span, refs, n_refs, invert);
+      break;
+    case kSbr:
+      mlc_sense_kernel<kSbr><<<grid, kBlock, 0, stream>>>(tables, n_tables, out, words, blocks_per_row, span, refs, n_refs, invert);
+      break;
+    case kParity:
+      // TLC's AND3 and the reduced-MLC AND read one reference, TLC's OR3
+      // two: their launches compare each cell that often, not kMaxRefs times
+      if (n_refs == 1)
+        mlc_sense_kernel<kParity, 1><<<grid, kBlock, 0, stream>>>(tables, n_tables, out, words, blocks_per_row, span, refs, n_refs, invert);
+      else if (n_refs == 2)
+        mlc_sense_kernel<kParity, 2><<<grid, kBlock, 0, stream>>>(tables, n_tables, out, words, blocks_per_row, span, refs, n_refs, invert);
+      else
+        mlc_sense_kernel<kParity><<<grid, kBlock, 0, stream>>>(tables, n_tables, out, words, blocks_per_row, span, refs, n_refs, invert);
+      break;
+    default:
+      return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
 }
 
 // A counting unit: the 4096 cells of one tile of one row, kCountVecs float4
@@ -127,35 +183,64 @@ extern "C" int mcf_mlc_sense(const float* const* bases,
   using namespace mcf;
   if (n_tables < 1 || n_tables > kMaxTables || rows < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t words = cols / kWordBits;
-  const int64_t blocks_per_row = (words + kBlock - 1) / kBlock;
+  return static_cast<int>(launch_mlc_sense(
+      load_tables(bases, slots, ends, n_tables), n_tables, out,
+      Span{0, nullptr, 0}, rows, cols,
+      kind, load_refs(host_refs), n_refs, invert, stream));
+}
+
+// The rows as mcf_mlc_sense takes them, to the same words in `out`, sensed
+// `chunk` rows at a time on `stream`, one launch a chunk; after each chunk
+// an event lets `copy_stream` copy that chunk's words to the same offset of
+// `host` (pinned). With `mask`, the words of rows from `mask_row` on are
+// ANDed with the mask's words at the same offsets as they are written. The
+// last chunk's copy is the last work this call enqueues on `copy_stream`.
+// One event per device is re-recorded for each chunk: a stream's wait takes
+// the event as it stands when the wait is enqueued, so later records do not
+// move it.
+extern "C" int mcf_mlc_sense_drain(const float* const* bases,
+                                   const int32_t* const* slots,
+                                   const int64_t* ends, int n_tables,
+                                   uint32_t* out, uint32_t* host, int64_t rows,
+                                   int64_t cols, int64_t chunk,
+                                   const uint32_t* mask, int64_t mask_row,
+                                   int kind, int n_refs, int invert,
+                                   const float* host_refs,
+                                   cudaStream_t copy_stream,
+                                   cudaStream_t stream) {
+  using namespace mcf;
+  if (n_tables < 1 || n_tables > kMaxTables || rows < 1 || chunk < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int kMaxDevices = 64;
+  static cudaEvent_t made[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev < 0 || dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  if (made[dev] == nullptr) {
+    err = cudaEventCreateWithFlags(&made[dev], cudaEventDisableTiming);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   const RowTables tables = load_tables(bases, slots, ends, n_tables);
   const Refs refs = load_refs(host_refs);
-  const unsigned int grid = static_cast<unsigned int>(rows * blocks_per_row);
-  switch (kind) {
-    case kLsb:
-      mlc_sense_kernel<kLsb><<<grid, kBlock, 0, stream>>>(tables, n_tables, out, words, blocks_per_row, refs, n_refs, invert);
-      break;
-    case kMsb:
-      mlc_sense_kernel<kMsb><<<grid, kBlock, 0, stream>>>(tables, n_tables, out, words, blocks_per_row, refs, n_refs, invert);
-      break;
-    case kSbr:
-      mlc_sense_kernel<kSbr><<<grid, kBlock, 0, stream>>>(tables, n_tables, out, words, blocks_per_row, refs, n_refs, invert);
-      break;
-    case kParity:
-      // TLC's AND3 and the reduced-MLC AND read one reference, TLC's OR3
-      // two: their launches compare each cell that often, not kMaxRefs times
-      if (n_refs == 1)
-        mlc_sense_kernel<kParity, 1><<<grid, kBlock, 0, stream>>>(tables, n_tables, out, words, blocks_per_row, refs, n_refs, invert);
-      else if (n_refs == 2)
-        mlc_sense_kernel<kParity, 2><<<grid, kBlock, 0, stream>>>(tables, n_tables, out, words, blocks_per_row, refs, n_refs, invert);
-      else
-        mlc_sense_kernel<kParity><<<grid, kBlock, 0, stream>>>(tables, n_tables, out, words, blocks_per_row, refs, n_refs, invert);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t words = cols / kWordBits;
+  for (int64_t r0 = 0; r0 < rows; r0 += chunk) {
+    const int64_t r1 = r0 + chunk < rows ? r0 + chunk : rows;
+    const Span span{r0, mask != nullptr && r1 > mask_row ? mask : nullptr,
+                    mask_row};
+    err = launch_mlc_sense(tables, n_tables, out, span, r1 - r0, cols, kind,
+                           refs, n_refs, invert, stream);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int64_t w0 = r0 * words;
+    if ((err = cudaEventRecord(made[dev], stream)) != cudaSuccess ||
+        (err = cudaStreamWaitEvent(copy_stream, made[dev], 0)) != cudaSuccess ||
+        (err = cudaMemcpyAsync(host + w0, out + w0,
+                               (r1 - r0) * words * sizeof(uint32_t),
+                               cudaMemcpyDeviceToHost, copy_stream)) !=
+            cudaSuccess)
+      return static_cast<int>(err);
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(cudaSuccess);
 }
 
 // The rows as mcf_mlc_sense takes them; `*out` gets the count of the cells

@@ -15,7 +15,9 @@
 //
 // Every C entry point launches on the caller's stream, does not synchronise,
 // allocates nothing, and returns cudaGetLastError() so the Python wrapper can
-// raise on a launch the CUDA runtime refused.
+// raise on a launch the CUDA runtime refused. mcf_mlc_sense_drain also
+// enqueues copies on a second stream the caller gives, after one event per
+// device that it creates at its first call.
 #pragma once
 
 #include <cstdint>

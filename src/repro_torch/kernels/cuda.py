@@ -58,6 +58,9 @@ _SIGNATURES = {
     "mcf_popcount_rows": ("popcount", [_P, _P, _P, _I64, _I64, _P]),
     "mcf_sense_popcount": ("mlc_sense", [_P, _P, _P, _I, _P, _I64, _I64,
                                          _I64, _I, _I, _I, _I, _P, _P]),
+    "mcf_mlc_sense_drain": ("mlc_sense", [_P, _P, _P, _I, _P, _P, _I64, _I64,
+                                          _I64, _P, _I64, _I, _I, _I, _P, _P,
+                                          _P]),
 }
 
 #: operand pointers one ``mcf_bitwise_reduce`` launch takes (``kMaxOperands``
@@ -156,14 +159,14 @@ def current_stream() -> int:
     return torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
 
 
-def launch(kernel: str, symbol: str, *args) -> None:
-    """Call one C entry point on the current stream, count the launch, and
-    raise if the CUDA runtime refused it."""
+def launch(kernel: str, symbol: str, *args, count: int = 1) -> None:
+    """Call one C entry point on the current stream, count its ``count``
+    launches of ``kernel``, and raise if the CUDA runtime refused one."""
     err = _entry(symbol)(*args, current_stream())
     if err != 0:
         raise RuntimeError(f"CUDA kernel {kernel} failed to launch: "
                            f"error {err} ({_error_string(err)})")
-    launches[kernel] += 1
+    launches[kernel] += count
 
 
 #: references each read kind compares against (parity: ``n_refs``)

@@ -26,11 +26,21 @@ the blocks the card holds at once strides over 4096-cell units of the rows
 in table order, and each block adds its sum to the total with one atomic.
 Cells past ``n_bits`` are neither read nor counted, so no tail mask is
 read.  Its plain version is :data:`reference_popcount`.
+
+:func:`sense_drain` (``mcf_mlc_sense_drain``, same source) senses the same
+rows to the same words and drains them to a host buffer as they are made:
+what the executor runs for a drained root whose plan is one sense.  One C
+call enqueues, per chunk of rows, one launch of the sense kernel (which,
+in a chunk that holds bits past the result, ANDs them with the tail mask
+as it writes them), an event, and the chunk's copy on a copy stream that
+waits for the event; so a chunk's copy runs while the next is sensed, and
+the host pays for one call, not one per chunk.  Its plain version is
+:func:`drain_chunks` over :func:`mlc_sense`.
 """
 from __future__ import annotations
 
 from itertools import accumulate
-from typing import Optional, Sequence, Union
+from typing import Callable, Optional, Sequence, Union
 
 import torch
 
@@ -113,3 +123,81 @@ def sense_popcount(vth: Union[torch.Tensor, Rows], refs: Sequence[float], *,
                     ends[-1], c, cells, kind_code, n_refs, int(invert),
                     int(k == 0), refs_c)
     return out
+
+
+def drain_chunks(sense: Callable[[Rows], torch.Tensor],
+                 vth: Union[torch.Tensor, Rows], host: torch.Tensor,
+                 chunk_rows: int, mask: Optional[torch.Tensor] = None,
+                 mask_row: int = 0) -> int:
+    """The plain version of :func:`sense_drain`: ``sense`` each chunk of
+    ``chunk_rows`` rows in turn, AND the words of rows from ``mask_row`` on
+    with ``mask`` (flat, the words' offsets), and copy the chunk into its
+    slice of the flat ``host``.  Returns the chunks."""
+    rows = identity(vth) if isinstance(vth, torch.Tensor) else vth
+    n, chunks = rows.n_rows, 0
+    for s in range(0, n, chunk_rows):
+        e = min(s + chunk_rows, n)
+        words = sense(rows.take(s, e))
+        w = words.shape[1]
+        if mask is not None and e > mask_row:
+            m0 = max(s, mask_row)
+            words[m0 - s:] &= mask[m0 * w:e * w].view(e - m0, w)
+        host[s * w:e * w].copy_(words.reshape(-1))
+        chunks += 1
+    return chunks
+
+
+def sense_drain(vth: Union[torch.Tensor, Rows], refs: Sequence[float], *,
+                kind: str, host: torch.Tensor, chunk_rows: int,
+                copy_stream: "Optional[torch.cuda.Stream]" = None,
+                invert: bool = False, n_refs: int = 0,
+                mask: Optional[torch.Tensor] = None,
+                mask_row: int = 0) -> int:
+    """Sense R Vth rows with one read kind into :func:`mlc_sense`'s words,
+    drained into the flat int32 ``host`` buffer (pinned, on a card)
+    ``chunk_rows`` rows at a time: each chunk's copy, on ``copy_stream``,
+    starts as soon as the chunk is sensed.  The words of rows from
+    ``mask_row`` on are ANDed with ``mask`` (flat, at the words' offsets)
+    before their copy.  Returns the chunks; on a card the last copy is the
+    last work it enqueues on ``copy_stream``."""
+    c = vth.shape[1] if isinstance(vth, torch.Tensor) else vth.cols
+    if c % TILE_COLS:
+        raise ValueError(f"cols {c} must be a multiple of {TILE_COLS}")
+    if chunk_rows < 1:
+        raise ValueError(f"chunk_rows must be >= 1, got {chunk_rows}")
+    if vth.device.type == "cpu":
+        return drain_chunks(lambda rows: mlc_sense(
+            rows, refs, kind=kind, invert=invert, n_refs=n_refs),
+            vth, host, chunk_rows, mask, mask_row)
+    if isinstance(vth, torch.Tensor):
+        vth = identity(cuda.check_cuda("vth", vth, torch.float32))
+    words = c // WORD_BITS
+    if not (host.dtype == torch.int32 and host.is_contiguous()
+            and host.is_pinned() and host.numel() == vth.n_rows * words):
+        raise ValueError(f"host must be pinned contiguous int32 of "
+                         f"{vth.n_rows * words} words")
+    if mask is not None:
+        mask = cuda.check_cuda("mask", mask, torch.int32)
+    out = torch.empty((vth.n_rows, words), dtype=torch.int32,
+                      device=vth.device)
+    kind_code, n_refs, refs_c = cuda.sense_args(refs, kind, n_refs)
+    total, row0, cap = 0, 0, cuda.MAX_TABLES
+    for s in range(0, len(vth), cap):
+        part = vth if len(vth) <= cap else vth[s:s + cap]
+        ends = list(accumulate(int(t.shape[0]) for t in part.slots))
+        if ends[-1]:
+            bases, slots = cuda.table_args(part)
+            off = row0 * words * 4                 # int32 words
+            chunks = -(-ends[-1] // chunk_rows)    # one sense launch each
+            cuda.launch("mlc_sense", "mcf_mlc_sense_drain", bases, slots,
+                        cuda.TableEnds(*ends), len(part), out.data_ptr() + off,
+                        host.data_ptr() + off, ends[-1], c, chunk_rows,
+                        None if mask is None else mask.data_ptr() + off,
+                        max(mask_row - row0, 0), kind_code, n_refs,
+                        int(invert), refs_c, copy_stream.cuda_stream,
+                        count=chunks)
+            total += chunks
+        row0 += ends[-1]
+    # the words stay allocated until the copy stream has read them
+    out.record_stream(copy_stream)
+    return total

@@ -19,8 +19,9 @@ from repro_torch.kernels.bitops import bitwise_reduce
 from repro_torch.kernels.fused import Operands
 from repro_torch.kernels.popcount import popcount_rows
 
-__all__ = ["sense_plan", "sense_popcount_plan", "sense_reduce_plan",
-           "sense_reduce_popcount_plan", "bitwise_reduce", "popcount_rows"]
+__all__ = ["sense_plan", "sense_drain_plan", "sense_popcount_plan",
+           "sense_reduce_plan", "sense_reduce_popcount_plan", "bitwise_reduce",
+           "popcount_rows"]
 
 
 def _plan_parts(plan) -> tuple[tuple, str, bool, int]:
@@ -32,6 +33,18 @@ def sense_plan(vth: Operands, plan) -> torch.Tensor:
     refs, kind, sense_invert, n_refs = _plan_parts(plan)
     return _mlc.mlc_sense(vth, refs, kind=kind, invert=sense_invert,
                           n_refs=n_refs)
+
+
+def sense_drain_plan(vth: Operands, plan, host: torch.Tensor, chunk_rows: int,
+                     copy_stream=None, mask: Optional[torch.Tensor] = None,
+                     mask_row: int = 0) -> int:
+    """Run a ReadPlan through the sense kernel in chunks of rows, each
+    chunk's words drained into ``host`` as it is made -> the chunks."""
+    refs, kind, sense_invert, n_refs = _plan_parts(plan)
+    return _mlc.sense_drain(vth, refs, kind=kind, invert=sense_invert,
+                            n_refs=n_refs, host=host, chunk_rows=chunk_rows,
+                            copy_stream=copy_stream, mask=mask,
+                            mask_row=mask_row)
 
 
 def sense_popcount_plan(vth: Operands, plan,

@@ -8,8 +8,9 @@ read each row in place, so nothing is copied out of the arena before a
 sense.  :func:`identity` gives a dense stack the same form (one base, the
 identity table), so every sense takes one kernel whatever its input.
 
-``mlc_sense`` reads the tables' rows in order; the fused kernels take one
-table per operand, all of one length.  The plain versions gather the rows
+``mlc_sense`` reads the tables' rows in order (:meth:`Rows.take` gives a
+run of them, as the slices of the tables that hold it); the fused kernels
+take one table per operand, all of one length.  The plain versions gather the rows
 with ``index_select`` (:meth:`Rows.gather`) and run the dense reference.
 """
 from __future__ import annotations
@@ -45,6 +46,19 @@ class Rows:
 
     def __getitem__(self, index: slice) -> "Rows":
         return Rows(self.bufs[index], self.slots[index])
+
+    def take(self, start: int, stop: int) -> "Rows":
+        """Rows ``start..stop-1`` over all tables in order: each table that
+        holds some of them, sliced to those (a view of its slots)."""
+        bufs, slots, row0 = [], [], 0
+        for buf, table in zip(self.bufs, self.slots):
+            n = int(table.shape[0])
+            lo, hi = max(start - row0, 0), min(stop - row0, n)
+            if lo < hi:
+                bufs.append(buf)
+                slots.append(table[lo:hi])
+            row0 += n
+        return Rows(bufs, slots)
 
     @property
     def device(self) -> torch.device:

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.api import executor as executor_mod
 from repro_torch.api.session import ComputeSession
 from repro_torch.flash.geometry import SSDConfig
 from repro_torch.kernels import bitops, cuda, fused, mlc_sense, popcount
@@ -39,7 +40,9 @@ def test_cuda_kernels_match_plain_versions(card):
     the kernels equal their plain versions bit for bit, on dense stacks
     (the identity table) and on rows read in place from two shards through
     out-of-order slot tables with a repeated slot; ``sense_popcount`` also
-    over ragged tails and over 40 tables (two launches into one total)."""
+    over ragged tails and over 40 tables (two launches into one total);
+    ``sense_drain`` in chunks to pinned memory on a copy stream, a tail
+    masked, over 40 tables too."""
     gen = torch.Generator().manual_seed(0)
     vth = (torch.randn(3, 5, 8192, generator=gen) * 2 + 2).to(card)
     mask = _words(gen, (5, 256), card)
@@ -75,6 +78,7 @@ def test_cuda_kernels_match_plain_versions(card):
                                 n_refs=n_refs),
             mlc_sense.reference(gathered.reshape(15, -1), refs, kind, invert,
                                 n_refs))
+        _hold_sense_drain(gen, (rows, many), refs, kind, invert, card)
         for op, stack in itertools.product(("and", "or", "xor"),
                                            ((vth, vth), (rows, gathered))):
             args = dict(kind=kind, sense_invert=not invert, op=op,
@@ -93,11 +97,40 @@ def test_cuda_kernels_match_plain_versions(card):
     torch.cuda.synchronize()
 
 
+def _hold_sense_drain(gen, vths, refs, kind, invert, card):
+    """Chunks of 4 rows (the last one short), then one chunk of all: the
+    drained words are the plain sense's, those of rows from ``mask_row``
+    on ANDed with the mask."""
+    stream = torch.cuda.Stream()
+    for vth_rows in vths:
+        dense = vth_rows.gather()
+        r, words = dense.shape[0], dense.shape[1] // 32
+        want = mlc_sense.reference(dense, refs, kind, invert, len(refs))
+        mask = _words(gen, (r * words,), card)
+        for chunk_rows, mask_row in ((4, r - 2), (r, r), (4, 5)):
+            host = torch.empty(r * words, dtype=torch.int32, pin_memory=True)
+            launches = cuda.launches["mlc_sense"]
+            chunks = mlc_sense.sense_drain(
+                vth_rows, refs, kind=kind, invert=invert, n_refs=len(refs),
+                host=host, chunk_rows=chunk_rows, copy_stream=stream,
+                mask=mask if mask_row < r else None, mask_row=mask_row)
+            stream.synchronize()
+            tables = -(-len(vth_rows) // cuda.MAX_TABLES)
+            assert tables <= chunks <= -(-r // chunk_rows) + tables - 1
+            # one sense launch a chunk, the mask ANDed inside it
+            assert cuda.launches["mlc_sense"] - launches == chunks
+            masked = want.clone().reshape(-1)
+            masked[mask_row * words:] &= mask[mask_row * words:]
+            assert torch.equal(host, masked.cpu()), (kind, chunk_rows)
+
+
 @pytest.mark.gpu
-def test_session_on_the_card_launches_every_kernel(card):
+def test_session_on_the_card_launches_every_kernel(card, monkeypatch):
     """A small session on the card equals the numpy oracle and goes through
     all six kernels: a fused chain's count, a combine root's count and a
-    pair's count sensed in one pass."""
+    pair's count sensed in one pass.  A drained pair root in out-of-order
+    slots, sensed and copied host-ward in three chunks, equals the one-shot
+    drain bit for bit."""
     rng = np.random.default_rng(0)
     n = 3 * 8192 + 17
     raw = [(rng.random(n) < 0.6).astype(np.uint8) for _ in range(6)]
@@ -121,6 +154,38 @@ def test_session_on_the_card_launches_every_kernel(card):
     assert sess.popcount(v[4] & v[5]) == int((b[4] & b[5]).sum())
     assert sess.sense_counted_roots == 1
     assert all(count > 0 for count in cuda.launches.values()), cuda.launches
+    _hold_chunked_drain(sess, rng, monkeypatch)
+
+
+def _hold_chunked_drain(sess, rng, monkeypatch):
+    """5 pages less 100 bits in chunks of 2 pages: 3 chunks, the last one
+    masked; a filler pair's blocks erased first, so the pair's rows sit in
+    freed slots, out of order."""
+    monkeypatch.setattr(executor_mod, "DRAIN_CHUNK_PAGES", 2)
+    n = 5 * 8192 - 100
+    raw = [(rng.random(n) < 0.6).astype(np.uint8) for _ in range(2)]
+    sess.write_pair("x", raw[0], "y", raw[1], die=0)
+    for plane, block in sorted({wl[:2] for wl in sess.ftl.vectors["x"].pages}):
+        sess.device.erase_block(plane, block)
+    a, b = sess.write_pair("a", raw[0], "b", raw[1], die=0)
+    tables = sess.device.slot_tables(sess.ftl.vectors["a"].pages)
+    assert any(bool(torch.any(t[1:] < t[:-1])) for _, t in tables)
+    drains, launches = sess.pipelined_drains, cuda.launches["mlc_sense"]
+    for expr in (a & b, a | b, a ^ b, a.nand(b)):
+        got = sess.materialize_async(expr).result()
+        with monkeypatch.context() as m:
+            m.setattr(executor_mod, "_root_drains_in_chunks",
+                      lambda plan, popcounts: False)
+            want = sess.materialize_async(expr).result()
+        assert got.dtype == want.dtype == np.uint32
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(
+            got, sess.materialize(expr).cpu().numpy().view(np.uint32))
+    assert sess.pipelined_drains - drains == 4
+    assert sess.drain_chunks == 12
+    # the chunked and the one-shot drain and materialize: 3 + 1 + 1 senses
+    assert cuda.launches["mlc_sense"] - launches == 4 * 5
+    torch.cuda.synchronize()
 
 
 
