@@ -34,6 +34,7 @@ from typing import Iterable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.api import predicates
 from repro_torch.api.backends import Backend
 from repro_torch.api.executor import MAX_FUSED_OPERANDS, ExecPlan, Executor
 from repro_torch.api.graph import ASSOCIATIVE, BitVector, Leaf, simplify
@@ -77,6 +78,8 @@ _SESSION_COUNTERS = (
      "counted roots sensed and counted in one sense_popcount call"),
     ("pipelined_drains", "drained roots sensed and copied host-ward in chunks"),
     ("drain_chunks", "chunks those roots were sensed and copied in"),
+    ("between_predicates", "range predicates built by between()"),
+    ("between_nodes", "graph nodes those predicates built"),
 )
 
 #: per-shape tail-mask cache bound
@@ -260,6 +263,19 @@ class ComputeSession:
         expr = vecs[0]
         for v in vecs[1:]:
             expr = expr._binary(op, v)
+        return expr
+
+    def between(self, slices: Sequence[str], lo: int, hi: int) -> BitVector:
+        """Rows whose code over the bit-slice vectors ``slices`` (names,
+        most significant first) lies in ``lo <= v <= hi``; empty when
+        ``lo > hi``.  Built from Table-1 pair senses and page reads alone
+        (:mod:`repro_torch.api.predicates`), in a ``predicate`` span."""
+        digs = predicates.digits(self.ftl, slices)
+        with traced(self.trace, "predicate", "between", digits=len(digs),
+                    lo=int(lo), hi=int(hi)):
+            expr = predicates.between(self, digs, lo, hi)
+        self.metrics.counter("between_predicates").add(1)
+        self.metrics.counter("between_nodes").add(predicates.count_nodes(expr))
         return expr
 
     # -- planning ------------------------------------------------------------
@@ -492,6 +508,8 @@ class ComputeSession:
             "sense_counted_roots": self.sense_counted_roots,
             "pipelined_drains": self.pipelined_drains,
             "drain_chunks": self.drain_chunks,
+            "between_predicates": self.between_predicates,
+            "between_nodes": self.between_nodes,
             "host_drain": {"submits": self.host_drain_submits,
                            "blocks": self.host_drain_blocks,
                            "pending": len(self.host_queue),

@@ -38,6 +38,8 @@ category :attr:`Tracer.totals` keeps count, time and self time):
   ``program_store`` (``arena-write``: page records and the arena write);
   ``program`` and ``program_draw`` carry the ``encoding`` and its
   ``pages_per_wordline``.
+- ``predicate`` (``between``): ``ComputeSession.between`` building a
+  range predicate's DAG; args ``digits``, ``lo`` and ``hi``.
 - ``ftl``: copyback realignment and NOT-ready copies; ``reliability``:
   recovery.
 
