@@ -6,7 +6,7 @@
 1. Prints the card's name and power limit (``nvidia-smi``) and builds the
    CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per source, in
    parallel).
-2. Holds each of the six kernels against its plain PyTorch version on
+2. Holds each of the seven kernels against its plain PyTorch version on
    the card at full 16 kB pages (131072 cells), bit for bit: rows that are
    and are not multiples of 8, every read kind (``parity`` with 1..8
    references), every op, both inversion flags, words with bit 31 set;
@@ -36,7 +36,12 @@
    mask and timed beside the one-shot sense, mask and copy against its
    bound; and ``materialize_async`` of day pairs of that size on a
    session, each against numpy, launching one sense a chunk and nothing
-   else.
+   else.  Then the range-scan cell's shared-row sense
+   (``check_shared_rows``): ``mlc_sense_multi`` under 1 to 11 read plans
+   over out-of-order and 40 tables against its plain version and
+   ``mlc_sense`` a plan, then one die's pair of 4,096 rows under three
+   plans, each plane against ``mlc_sense``, timed beside three
+   ``mlc_sense`` launches and against its bound.
 3. Drives the compute-session main path, ``ComputeSession(device="cuda")``
    on the default SSD (16 channels x 8 dies, 16 kB pages): the seven
    Table-1 ops and the TLC AND3/OR3 fast paths under mlc, tlc and
@@ -53,7 +58,11 @@
    3-operand OR chain, popcount of an AND).  Every result is held against
    a numpy oracle; it prints solo against batched waves, ``waves_shared``,
    ``coalesced_sense_groups`` and the p50/p99 admit->result latency read
-   from the tracer's request spans.
+   from the tracer's request spans.  Its batches share rows: where two
+   requests of a batch sense one pair under two plans, the pair is read
+   once (``mlc_sense_multi``): the phase must launch it, and its
+   ``shared_row_senses`` / ``shared_row_items`` must equal the CPU
+   rehearsal's (``SERVE_SHARED_ROWS``).
 5. Recovery phase: sessions with 10k-P/E wear faults and one dead
    (plane, block) under a written pair, recovery on, under mlc and
    reduced-mlc: Table-1 ops, a fused chain and a controller combine on
@@ -171,7 +180,7 @@
    ``train_flops`` and the JAX package's 6·N·D, and the step's measured
    time against the roofline's lower bound.
 13. Prints the ``kernels`` JSON line (launches summed over the eight
-   paths; the pipeline and cost phases launch none of the six kernels),
+   paths; the pipeline and cost phases launch none of the seven kernels),
    then a last line ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero before the last line.  Without a
@@ -214,6 +223,10 @@ TABLE1_BITS = 2 ** 20                # 8 pages per operand
 IMAGE_BITS = 800 * 600 * 24          # one RGB image as 24 bitplanes (Fig 10)
 SERVE_COLUMNS = 32                   # 16 MLC pairs of 2**25-bit bitmaps
 SERVE_REQUESTS = 96
+#: shared-row senses of the serving phase and the sense items they serve,
+#: from its rehearsal on the CPU at 1 kB pages and the same page counts
+#: (2**21-bit columns; 12 batches of 8 requests, as on the card)
+SERVE_SHARED_ROWS = (6, 12)
 FAULT_PE = 10_000
 DEAD_BLOCK = (0, 0)                  # (plane, block): under die 0's first pair
 RATE_SEEDS = 8                       # fault seeds of the raw error rate
@@ -234,7 +247,8 @@ FILTER_PAIRS = 4
 #: kernel calls of the applications phase, per kernel, in its rehearsal on
 #: the CPU at 1 kB pages and the same page counts (2**21 bits per operand)
 APPS_LAUNCHES = {"mlc_sense": 3, "sense_reduce": 2, "sense_reduce_popcount": 1,
-                 "bitwise_reduce": 1, "popcount_rows": 0, "sense_popcount": 0}
+                 "bitwise_reduce": 1, "popcount_rows": 0, "sense_popcount": 0,
+                 "mlc_sense_multi": 0}
 #: kernels the main path and the placed phase launch: every root they count
 #: is one sense (``sense_popcount``) or a fused chain, so they launch every
 #: kernel but ``popcount_rows``
@@ -314,7 +328,8 @@ TRAIN_SHARDS = 131072
 #: reduce per leaf and direction)
 TRAIN_LAUNCHES = {"mlc_sense": 0, "sense_reduce": 0,
                   "sense_reduce_popcount": 0, "bitwise_reduce": 180,
-                  "popcount_rows": 0, "sense_popcount": 1}
+                  "popcount_rows": 0, "sense_popcount": 1,
+                  "mlc_sense_multi": 0}
 #: the H100's dense bfloat16 peak (NVIDIA's data sheet, SXM, at 700 W)
 BF16_PEAK_FLOPS = 989e12
 #: the pipeline phase: gemma3-1b's four stacked pattern units (6 layers
@@ -348,6 +363,11 @@ KERNELS = {
     "sense_popcount": ("src/repro_torch/csrc/mlc_sense.cu",
                        "src/repro/kernels/mlc_sense.py:87 + "
                        "src/repro/kernels/popcount.py:47"),
+    # one page list sensed under several read plans in one pass: the JAX
+    # package runs mlc_sense once a plan
+    "mlc_sense_multi": ("src/repro_torch/csrc/mlc_sense.cu",
+                        "none (src/repro/kernels/mlc_sense.py:87 once a "
+                        "read plan)"),
 }
 KIND_REFS = {"lsb": [1.9], "msb": [0.1, 3.7], "sbr": [0.1, 3.7, 1.9, 5.5]}
 #: the segmentation cell's counted root: 1,875 wordlines of 131072 cells
@@ -356,6 +376,14 @@ SEGMENT_ROWS = 1875
 SEGMENT_REFS = [2.0]
 #: float32 compares per cell of each read kind (parity: one per reference)
 KIND_COMPARES = {"lsb": 1, "msb": 2, "sbr": 4}
+#: the range-scan cell's shared-row sense: one die's pair of 2**29 rows,
+#: 4,096 wordlines of 131072 cells, sensed under three read plans
+BETWEEN_ROWS = 4096
+SHARED_PLANS = (([1.9], "lsb", False), ([0.1, 3.7], "msb", True),
+                ([0.1, 3.7, 1.9, 5.5], "sbr", False))
+#: timed calls per round, and rounds, of the shared-row sense and of one
+#: mlc_sense a plan
+SHARED_ITERS, SHARED_ROUNDS = 20, 3
 #: the daypair cell's drained root: one MLC day pair of 17 * 2**24 users,
 #: 2,176 wordlines of 131072 cells, sensed and copied host-ward in chunks
 DAYPAIR_ROWS = 2176
@@ -997,6 +1025,104 @@ def check_drain(errs: dict) -> dict:
     return out
 
 
+def check_shared_rows(errs: dict) -> dict:
+    """The multi-plan sense at the range-scan cell's shape.
+
+    ``mlc_sense_multi`` over two shards through out-of-order slot tables
+    (and over 40 tables, two launches) under 1, 2, 3, 8 and 11 read plans
+    (every MLC kind, both inversions, shifted references; 11 plans in two
+    launches) equals its plain version and ``mlc_sense`` under each plan.
+    Then one die's pair of the range-scan cell, 4,096 rows through an
+    out-of-order table, under three plans (lsb, an inverse msb and sbr):
+    each plane equals ``mlc_sense``'s words, the first 64 rows the plain
+    version's.  It is timed (CUDA events, in alternating rounds, and device
+    time from ``torch.profiler``) beside ``mlc_sense`` once a plan and
+    against its bound, the rows read once and each plan's words written
+    once.  Folds the differences into ``errs``."""
+    from repro_torch.kernels import cuda, mlc_sense
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(35)
+    shards = [torch.randn(13, COLS, generator=gen, device="cuda") * 2 + 2,
+              torch.randn(7, COLS, generator=gen, device="cuda") * 2 + 2]
+    pool = [(refs, kind, inv) for kind, refs in KIND_REFS.items()
+            for inv in (False, True)]
+    pool += [([r + 0.13 for r in refs], kind, not inv)
+             for refs, kind, inv in pool]
+    err = 0
+    for vth in (shard_tables(gen, shards, 5, 3),
+                shard_tables(gen, shards, 2, 40)):
+        dense = vth.gather()
+        for n in (1, 2, 3, 8, 11):
+            plans = pool[:n]
+            before = cuda.launches["mlc_sense_multi"]
+            got = mlc_sense.mlc_sense_multi(vth, plans)
+            launched = cuda.launches["mlc_sense_multi"] - before
+            want = -(-n // cuda.MAX_PLANS) * -(-len(vth) // cuda.MAX_TABLES)
+            if launched != want:
+                fail(f"mlc_sense_multi of {n} plans over {len(vth)} tables "
+                     f"launched {launched}, expected {want}")
+            err = max(err, word_err(got, mlc_sense.reference_multi(dense,
+                                                                   plans)))
+            for k, (refs, kind, inv) in enumerate(plans):
+                err = max(err, word_err(got[k], mlc_sense.mlc_sense(
+                    vth, refs, kind=kind, invert=inv)))
+    del shards
+    shard = torch.randn(BETWEEN_ROWS + 128, COLS, generator=gen,
+                        device="cuda") * 2 + 2
+    rows = shard_tables(gen, [shard], BETWEEN_ROWS, 1)
+    plans = SHARED_PLANS
+
+    def multi():
+        return mlc_sense.mlc_sense_multi(rows, plans)
+
+    def singles():
+        return [mlc_sense.mlc_sense(rows, refs, kind=kind, invert=inv)
+                for refs, kind, inv in plans]
+
+    got = multi()
+    for k, want in enumerate(singles()):
+        err = max(err, word_err(got[k], want))
+    head = rows.take(0, 64)
+    err = max(err, word_err(got[:, :64], mlc_sense.reference_multi(
+        head.gather(), plans)))
+    sync()
+    if err:
+        fail(f"mlc_sense_multi differs from its plain version and from "
+             f"mlc_sense by {err}")
+    errs["mlc_sense_multi"] = max(errs["mlc_sense_multi"], err)
+    del got
+    times: dict = {"multi_ms": [], "singles_ms": []}
+    for r in range(SHARED_ROUNDS):
+        for name, fn in ((("multi_ms", multi), ("singles_ms", singles))
+                         if r % 2 == 0 else
+                         (("singles_ms", singles), ("multi_ms", multi))):
+            times[name].append(time_ms(fn, SHARED_ITERS))
+    device = device_ops(multi, SHARED_ITERS, "mlc_sense_multi")
+    singles_device = device_ops(singles, SHARED_ITERS, "mlc_sense x 3")
+    dense = rows.gather()
+    plain_ms = time_ms(lambda: mlc_sense.reference_multi(dense, plans), 3, 1)
+    del dense
+    cells = BETWEEN_ROWS * COLS
+    bound_ms = cells * (4 + len(plans) / 8) / H100_SXM_HBM_BYTES_PER_S * 1e3
+    singles_bound_ms = (len(plans) * cells * (4 + 1 / 8)
+                        / H100_SXM_HBM_BYTES_PER_S * 1e3)
+    ms = float(np.median(times["multi_ms"]))
+    out = {"rows": BETWEEN_ROWS, "plans": len(plans), **times,
+           "ms": ms, "device_ms": device["ms"],
+           "device_ops_per_call": device["ops"],
+           "singles_device_ms": singles_device["ms"],
+           "bound_ms": bound_ms, "bound_by": "HBM bytes",
+           "singles_bound_ms": singles_bound_ms,
+           "roofline_pct": (100 * bound_ms / device["ms"]
+                            if device["ms"] else None),
+           "events_roofline_pct": 100 * bound_ms / ms,
+           "plain_ms": plain_ms, "library_ms": None}
+    del rows, shard
+    torch.cuda.empty_cache()
+    return out
+
+
 def host_split(pair: list, flat: torch.Tensor, tail: torch.Tensor,
                iters: int = 1000) -> dict:
     """Host microseconds per call, over ``iters`` calls with no
@@ -1196,7 +1322,8 @@ def word_popcount(words: np.ndarray) -> int:
 BACKEND_KERNELS = {"sense": "mlc_sense", "sense_reduce": "sense_reduce",
                    "sense_reduce_popcount": "sense_reduce_popcount",
                    "reduce": "bitwise_reduce", "popcount": "popcount_rows",
-                   "sense_popcount": "sense_popcount"}
+                   "sense_popcount": "sense_popcount",
+                   "sense_multi": "mlc_sense_multi"}
 
 
 @dataclasses.dataclass
@@ -1229,7 +1356,7 @@ def recording(backend):
         if not isinstance(a, Rows):
             return a
         dense = a.gather()
-        if name in ("mlc_sense", "sense_popcount"):
+        if name in ("mlc_sense", "sense_popcount", "mlc_sense_multi"):
             return dense
         return dense.reshape(len(a), -1, a.cols)
 
@@ -1238,7 +1365,8 @@ def recording(backend):
 
         def call(*args, **kwargs):
             out = real(*args, **kwargs)
-            plan = next((a for a in args if isinstance(a, ReadPlan)), None)
+            plan = (tuple(args[1]) if name == "mlc_sense_multi" else
+                    next((a for a in args if isinstance(a, ReadPlan)), None))
             rec.counts[name] += 1
             if out.device.type == "cuda":
                 rec.streams[name].add(torch.cuda.current_stream().cuda_stream)
@@ -1285,12 +1413,17 @@ def hold_recorded(calls: dict) -> dict:
         refs, kind, inv, n = parts(plan)
         return mlc_sense.reference_popcount(vth, refs, kind, inv, n, n_bits)
 
+    def sense_multi(vth, plans):
+        return mlc_sense.reference_multi(
+            vth, [(list(p.refs), p.kind, p.uses_inverse) for p in plans])
+
     plain = {"mlc_sense": sense, "sense_reduce": sense_reduce,
              "sense_reduce_popcount": sense_reduce_popcount,
              "bitwise_reduce": lambda operands, op, invert=False, out=None:
                  bitops.reference(operands, op, invert),
              "popcount_rows": popcount.reference,
-             "sense_popcount": sense_popcount}
+             "sense_popcount": sense_popcount,
+             "mlc_sense_multi": sense_multi}
     out: dict = {}
     for (name, *_), (args, kwargs, got) in calls.items():
         out[name] = max(out.get(name, 0),
@@ -1408,7 +1541,13 @@ def serving_phase(gen: torch.Generator, errs: dict, gpu: str,
     del rec
     fold_errs(errs, checked, launches, "serving")
     require_launches(launches, ("mlc_sense", "bitwise_reduce",
-                                "popcount_rows"), "serving")
+                                "popcount_rows", "mlc_sense_multi"),
+                     "serving")
+    shared = (sess.shared_row_senses, sess.shared_row_items)
+    if shared != SERVE_SHARED_ROWS:
+        fail(f"serving: shared-row senses and items {shared} in "
+             f"{st['batches_dispatched']} batches differ from the CPU "
+             f"rehearsal's {SERVE_SHARED_ROWS}")
     out = {"requests": SERVE_REQUESTS, "batches": st["batches_dispatched"],
            "solo_waves": solo_waves, "batched_waves": st["sense_waves"],
            "waves_shared": st["waves_shared"],
@@ -1418,13 +1557,17 @@ def serving_phase(gen: torch.Generator, errs: dict, gpu: str,
            "serve_s": serve_s, "seconds": time.perf_counter() - t0,
            "launches": launches, "kernel_checks": sorted(checked),
            "megakernel_calls": sess.megakernel_calls,
+           "shared_row_senses": sess.shared_row_senses,
+           "shared_row_items": sess.shared_row_items,
            "makespan_us": sess.ledger.makespan_us()}
     print(f"serving ({gpu}): {SERVE_REQUESTS} requests over "
           f"{SERVE_COLUMNS} columns of {column_bits} bits in "
           f"{out['batches']} batches, "
           f"all bit-exact; waves solo {solo_waves} vs batched "
           f"{out['batched_waves']}, waves_shared {out['waves_shared']}, "
-          f"coalesced_sense_groups {out['coalesced_sense_groups']}; "
+          f"coalesced_sense_groups {out['coalesced_sense_groups']}, "
+          f"shared_row_senses {out['shared_row_senses']} serving "
+          f"{out['shared_row_items']} items; "
           f"admit->result p50 {out['p50_ms']:.3f} ms, p99 "
           f"{out['p99_ms']:.3f} ms (tracer request spans); serve "
           f"{serve_s:.2f} s, phase {out['seconds']:.2f} s; launches "
@@ -3346,6 +3489,18 @@ def main() -> int:
     print(f"drained root at the daypair shape ({gpu}): bit-exact "
           f"({time.perf_counter() - t:.1f} s); " + json.dumps(drain),
           flush=True)
+    t = time.perf_counter()
+    timing["mlc_sense_multi"] = shared = check_shared_rows(errs)
+    record["shared_rows"] = shared
+    print(f"shared-row sense at the range-scan shape ({gpu}): bit-exact "
+          f"({time.perf_counter() - t:.1f} s); {shared['plans']} plans over "
+          f"{shared['rows']} rows: {shared['ms']:.5f} ms a call (events), "
+          f"device {shared['device_ms']} ms, bound {shared['bound_ms']:.5f} "
+          f"ms ({shared['roofline_pct']} % of it); mlc_sense once a plan "
+          f"{float(np.median(shared['singles_ms'])):.5f} ms, device "
+          f"{shared['singles_device_ms']} ms, bound "
+          f"{shared['singles_bound_ms']:.5f} ms; plain "
+          f"{shared['plain_ms']:.3f} ms", flush=True)
 
     cuda.reset_launches()
     run = main_path()

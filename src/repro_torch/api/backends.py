@@ -36,6 +36,16 @@ class Backend:
         plan -> (R, C//32) packed int32."""
         return kops.sense_plan(vth, plan)
 
+    #: read kinds :meth:`sense_multi` takes (a parity read goes through
+    #: :meth:`sense`)
+    multi_kinds = kops.MULTI_KINDS
+
+    def sense_multi(self, vth: Vth, plans: Sequence[ReadPlan]) -> torch.Tensor:
+        """R Vth rows + P read plans of :attr:`multi_kinds` -> (P, R, C//32)
+        packed int32, plane ``p`` what :meth:`sense` gives under plan ``p``,
+        each row read once."""
+        return kops.sense_multi_plan(vth, plans)
+
     def sense_drain(self, vth: Vth, plan: ReadPlan, host: torch.Tensor,
                     chunk_rows: int, copy_stream=None,
                     mask: Optional[torch.Tensor] = None,

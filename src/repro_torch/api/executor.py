@@ -16,7 +16,11 @@ DAG into a static :class:`ExecPlan`, exactly as the JAX package does:
    ``DRAIN_CHUNK_PAGES`` pages at a time, each chunk's copy to the host
    starting as soon as the chunk is written.
 3. **Grouping** buckets every remaining sense by (:class:`ReadPlan`, die),
-   so all same-plan senses on one die run in ONE batched kernel call.
+   so all same-plan senses on one die run in ONE batched kernel call.  The
+   runner then reads each page list once where several of a stream's
+   groups sense it (:func:`_row_sharing`, part of the runner-cache key):
+   one ``sense_multi`` call computes every read plan its items take over
+   it.
 4. **Scheduling** packs the per-die groups and fused calls into
    topological waves: units on different dies share a wave, units
    contending for a die serialize, combines attach to the wave their last
@@ -63,8 +67,8 @@ from repro_torch.kernels.rows import Rows
 from repro_torch.obs.trace import traced
 from repro_torch.verify.invariants import check_overlap_consistency
 
-__all__ = ["ExecPlan", "Executor", "ProgramStep", "Wave", "WaveCost",
-           "DRAIN_CHUNK_PAGES", "MAX_FUSED_OPERANDS",
+__all__ = ["ExecPlan", "Executor", "ProgramStep", "SharedRows", "Wave",
+           "WaveCost", "DRAIN_CHUNK_PAGES", "MAX_FUSED_OPERANDS",
            "schedule_programs_into_idle_waves"]
 
 WordlineKey = Tuple[int, int, int]
@@ -642,6 +646,23 @@ class WaveCost(NamedTuple):
     parts: List[str]              # its units' labels, in order
 
 
+@dataclasses.dataclass(frozen=True)
+class SharedRows:
+    """Sense items of a plan's unfused groups that read one page list on
+    one stream: sensed by one ``sense_multi`` call that reads the list's
+    rows once, at the earliest wave of its items' groups."""
+    wave: int
+    slot: Optional[int]
+    #: the list's rows: rows ``start..stop-1`` of group ``group``'s rows
+    group: int
+    start: int
+    stop: int
+    #: the distinct read plans, each sensed once
+    plans: Tuple[ReadPlan, ...]
+    #: (pid, index into ``plans``) of every item it serves
+    pids: Tuple[Tuple[int, int], ...]
+
+
 class Executor:
     """Session-bound executor over the device-shared runner cache."""
 
@@ -769,8 +790,11 @@ class Executor:
             if sess.verifier.enabled and dev.ledger.mode != "independent":
                 # transfers may overlap only LATER waves' work in the step log
                 check_overlap_consistency(dev.ledger, plan=plan)
-        # rids are not keyed: isomorphic batches replay one runner
-        key = (sig, popcounts, layout)
+        # rids are not keyed: isomorphic batches replay one runner.  Which
+        # items share rows is keyed: the signature keeps only each page
+        # list's length, so plans of one signature may share differently
+        sharing = self.row_sharing(plan, layout)
+        key = (sig, popcounts, sharing, layout)
         if tracer is not None:
             evictions0 = self.cache.evictions
 
@@ -778,12 +802,13 @@ class Executor:
             self.traces += 1
             with traced(tracer, "compile", "build-executable",
                         waves=len(plan.waves)):
-                return self._build(plan, popcounts, layout)
+                return self._build(plan, popcounts, layout, sharing)
 
         fn = self.cache.get(key, build)
         if tracer is not None and self.cache.evictions > evictions0:
             tracer.instant("cache", "executable-evicted",
                            evicted=self.cache.evictions - evictions0)
+        shared = fn.shared_row_plans
         with traced(tracer, "dispatch", "dispatch-waves",
                     waves=len(plan.waves)) as span:
             if span is not None and rids is not None:
@@ -811,10 +836,14 @@ class Executor:
                         dict.fromkeys(_encoding_of(p) for p in plans))
                     span.args["refs"] = [len(p.refs) for p in plans]
                     span.args["counted"] = counted
+                    if shared:
+                        span.args["plans"] = list(shared)
                 outs = fn(group_rows, fused_rows, masks, tuple(n_bits_list),
                           drain if chunked else None)
                 if chunked and span is not None:
                     span.args["chunks"] = drain.chunks
+        sess.metrics.counter("shared_row_senses").add(len(shared))
+        sess.metrics.counter("shared_row_items").add(fn.shared_row_items)
         if chunked:
             sess.metrics.counter("pipelined_drains").add(1)
             sess.metrics.counter("drain_chunks").add(drain.chunks)
@@ -966,8 +995,15 @@ class Executor:
             1 for st in plan.steps if len(st.args) > 1 or st.invert
             or st.fused is not None))
 
+    def row_sharing(self, plan: ExecPlan, layout: Optional[tuple]) -> tuple:
+        """Where items of the plan's unfused sense groups read one page list
+        on one stream more than once (:func:`_row_sharing`): part of the
+        runner-cache key, and what :meth:`_build` shares."""
+        return _row_sharing(plan, _group_slots(plan, layout),
+                            self.session.backend.multi_kinds)
+
     def _build(self, plan: ExecPlan, popcounts: Tuple[bool, ...],
-               layout: Optional[tuple]):
+               layout: Optional[tuple], sharing: tuple):
         """Close an eager wave runner over the static plan.  Runtime
         inputs: per sense group and per fused step the :class:`Rows` it
         senses in place (:meth:`unit_rows`: shard buffers and slot tables,
@@ -1001,6 +1037,16 @@ class Executor:
         None), every unit's slot is None, and the arena's placement methods
         do nothing: everything runs on the current stream.
 
+        For each bucket of ``sharing`` (:meth:`row_sharing`: items of its
+        groups that read one page list on one stream), one ``sense_multi``
+        call over the list's rows, taken from a member's rows, senses each
+        of their distinct read plans once, at the earliest wave of their
+        groups and on their stream (:func:`_shared_rows`); the items'
+        partials take that wave's event, and a group launches only for the
+        items it keeps.  The runner carries what that decided:
+        ``shared_row_plans`` (the plans of each such call) and
+        ``shared_row_items`` (the items they serve).
+
         The closure captures the backend, the static plan and the arena's
         bound placement methods, never the executor/session (the runner
         cache is device-shared and must not pin dead sessions)."""
@@ -1012,12 +1058,13 @@ class Executor:
         fuse_pc = _root_fuses_popcount(plan, popcounts)
         counted = _root_counts_in_sense(plan, popcounts)
         fused_pos = _fused_positions(plan)
-        if layout is None:
-            group_slot = [None] * len(plan.groups)
-            fused_slot = dict.fromkeys(fused_pos)
-        else:
-            group_slot = [slot for _, slot in layout[0]]
-            fused_slot = dict(zip(fused_pos, (slot for _, slot in layout[1])))
+        group_slot = _group_slots(plan, layout)
+        fused_slot = (dict.fromkeys(fused_pos) if layout is None else
+                      dict(zip(fused_pos, (slot for _, slot in layout[1]))))
+        shared, kept = _shared_rows(plan, group_slot, sharing)
+        shared_at: List[List[SharedRows]] = [[] for _ in plan.waves]
+        for unit in shared:
+            shared_at[unit.wave].append(unit)
 
         def run(group_rows, fused_rows, masks, n_bits, drain=None):
             if drain is not None:
@@ -1043,14 +1090,29 @@ class Executor:
                 return (to_compute(total, done),)
             partials: Dict[int, torch.Tensor] = {}
             events: Dict[int, object] = {}    # pid -> event after its producer
-            for wave in plan.waves:
+            for wi, wave in enumerate(plan.waves):
                 made: Dict[Optional[int], List[int]] = {}  # slot -> its pids
+                for unit in shared_at[wi]:
+                    with on_slot(unit.slot):
+                        planes = backend.sense_multi(
+                            group_rows[unit.group].take(unit.start, unit.stop),
+                            unit.plans)
+                    for pid, k in unit.pids:
+                        partials[pid] = planes[k].reshape(-1)
+                        made.setdefault(unit.slot, []).append(pid)
                 for gi in wave.groups:
                     g = plan.groups[gi]
                     slot = group_slot[gi]
+                    rows, spans = group_rows[gi], g.spans()
+                    if kept[gi] is not None:
+                        if not kept[gi]:
+                            continue
+                        rows = Rows.cat([rows.take(*src)
+                                         for _, src, _ in kept[gi]])
+                        spans = [(pid, dst) for pid, _, dst in kept[gi]]
                     with on_slot(slot):
-                        packed = backend.sense(group_rows[gi], g.plan)
-                    for pid, (s, e) in g.spans():
+                        packed = backend.sense(rows, g.plan)
+                    for pid, (s, e) in spans:
                         partials[pid] = packed[s:e].reshape(-1)
                         made.setdefault(slot, []).append(pid)
                 for si in wave.fused:
@@ -1101,6 +1163,8 @@ class Executor:
                             if pc else out & mask)
             return tuple(outs)
 
+        run.shared_row_plans = tuple(len(u.plans) for u in shared)
+        run.shared_row_items = sum(len(u.pids) for u in shared)
         return run
 
 
@@ -1146,6 +1210,78 @@ def _root_drains_in_chunks(plan: ExecPlan,
     """Whether a drained root is sensed in chunks, each copied to the host
     as it is made: only on an uncounted plan whose root is one sense."""
     return not popcounts[0] and _root_is_one_sense(plan)
+
+
+def _group_slots(plan: ExecPlan, layout: Optional[tuple]
+                 ) -> List[Optional[int]]:
+    """Each sense group's stream slot (None unplaced)."""
+    if layout is None:
+        return [None] * len(plan.groups)
+    return [slot for _, slot in layout[0]]
+
+
+def _row_sharing(plan: ExecPlan, group_slot: List[Optional[int]],
+                 kinds: Tuple[str, ...]) -> tuple:
+    """The items of the plan's unfused sense groups whose group plan is of
+    ``kinds``, bucketed by (stream slot, page list), lists compared by
+    value: each bucket of two or more items (two plans, or one plan twice)
+    as its ``(group, item)`` indices, in first-appearance order.  Each
+    list object is compared once a call, and only with the distinct lists
+    before it (hashing a list's pages would cost as much every call); the
+    FTL never changes a page list in place."""
+    index: Dict[int, int] = {}           # id(list) -> the first equal list
+    lists: List[List[WordlineKey]] = []
+    buckets: Dict[tuple, list] = {}
+    for gi, g in enumerate(plan.groups):
+        if g.plan.kind not in kinds:
+            continue
+        for k, it in enumerate(g.items):
+            i = index.get(id(it.wls))
+            if i is None:
+                i = next((j for j, wls in enumerate(lists) if wls == it.wls),
+                         len(lists))
+                if i == len(lists):
+                    lists.append(it.wls)
+                index[id(it.wls)] = i
+            buckets.setdefault((group_slot[gi], i), []).append((gi, k))
+    return tuple(tuple(m) for m in buckets.values() if len(m) > 1)
+
+
+def _shared_rows(plan: ExecPlan, group_slot: List[Optional[int]],
+                 sharing: tuple
+                 ) -> Tuple[List[SharedRows], List[Optional[tuple]]]:
+    """The :class:`SharedRows` unit of each bucket of ``sharing``
+    (:func:`_row_sharing`), and per group None where it launches as
+    lowered, else ``(pid, its rows in the group's rows, its rows in what
+    the group still senses)`` of each item it keeps (none: it does not
+    launch)."""
+    wave_of = {gi: wi for wi, w in enumerate(plan.waves) for gi in w.groups}
+    spans = [g.spans() for g in plan.groups]
+    units: List[SharedRows] = []
+    taken: set = set()
+    for members in sharing:
+        index: Dict[ReadPlan, int] = {}
+        pids = tuple((spans[gi][k][0],
+                      index.setdefault(plan.groups[gi].plan, len(index)))
+                     for gi, k in members)
+        gi0, k0 = members[0]
+        start, stop = spans[gi0][k0][1]
+        units.append(SharedRows(min(wave_of[gi] for gi, _ in members),
+                                group_slot[gi0], gi0, start, stop,
+                                tuple(index), pids))
+        taken.update(pid for pid, _ in pids)
+    kept: List[Optional[tuple]] = []
+    for group_spans in spans:
+        if not any(pid in taken for pid, _ in group_spans):
+            kept.append(None)
+            continue
+        keep, row = [], 0
+        for pid, (s, e) in group_spans:
+            if pid not in taken:
+                keep.append((pid, (s, e), (row, row + e - s)))
+                row += e - s
+        kept.append(tuple(keep))
+    return units, kept
 
 
 def _fused_positions(plan: ExecPlan) -> Dict[int, int]:

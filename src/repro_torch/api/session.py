@@ -80,6 +80,11 @@ _SESSION_COUNTERS = (
     ("drain_chunks", "chunks those roots were sensed and copied in"),
     ("between_predicates", "range predicates built by between()"),
     ("between_nodes", "graph nodes those predicates built"),
+    ("shared_row_senses",
+     "multi-plan sense calls, each one page list's rows read once for its "
+     "plans (one mlc_sense_multi launch per 8 plans and 32 tables); the "
+     "recovery ladder's shifted re-runs are not booked"),
+    ("shared_row_items", "sense items those calls served"),
 )
 
 #: per-shape tail-mask cache bound
@@ -510,6 +515,8 @@ class ComputeSession:
             "drain_chunks": self.drain_chunks,
             "between_predicates": self.between_predicates,
             "between_nodes": self.between_nodes,
+            "shared_row_senses": self.shared_row_senses,
+            "shared_row_items": self.shared_row_items,
             "host_drain": {"submits": self.host_drain_submits,
                            "blocks": self.host_drain_blocks,
                            "pending": len(self.host_queue),

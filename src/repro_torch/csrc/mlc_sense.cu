@@ -21,6 +21,24 @@
 // chunks are enqueued by one call: the host pays for one call, not one per
 // chunk. A chunk that holds bits past the result's end is ANDed with the
 // tail mask as its words are written, in the same launch.
+//
+// Sense under several plans (mcf_mlc_sense_multi): the same R rows to P <=
+// kMaxPlans word sets, one a read plan, each laid out as mlc_sense's words.
+// It replaces no TPU kernel: the JAX package runs mlc_sense once a read plan,
+// and so re-reads a pair row under each plan its queries sense it with (a
+// range query senses one die's pair under two to five plans). Here each
+// cell's Vth is loaded from HBM once and sensed under every plan, so its
+// least time is R * C * (4 + P / 8) B over the memory rate, where P
+// mlc_sense launches take R * C * P * (4 + 1 / 8) B. A thread owns
+// kMultiVec consecutive words of a tile: cells k*128 + w .. w+kMultiVec-1
+// are consecutive, so each of its 32 loads is one 16-byte load, and a warp
+// reads 512 contiguous bytes. It keeps the 32 * kMultiVec cells in
+// registers and, plan after plan, senses them and stores its kMultiVec
+// words of that plan with one 16-byte store. The plans (kind, references,
+// inversion) travel by value and are copied to shared memory, which a
+// plan's loop reads with a runtime index. It takes the MLC kinds (lsb,
+// msb, sbr), each plan with its own references and inversion; parity
+// reads go through mlc_sense.
 #include "sense.cuh"
 
 namespace mcf {
@@ -170,6 +188,82 @@ void launch_sense_popcount(const RowTables& tables, int n_tables, int* out,
       tables, n_tables, out, cols, valid, units, refs, n_refs, invert);
 }
 
+// Read plans one multi-plan sense launch takes.
+constexpr int kMaxPlans = 8;
+// Words one thread of mlc_sense_multi_kernel senses: one float4 of cells
+// for each of a word's 32 bits.
+constexpr int kMultiVec = 4;
+constexpr int kMultiBlock = 128;
+
+// P read plans by value: plan p senses under kind[p] with refs[p], and
+// inverts its words where invert[p].
+struct Plans {
+  Refs refs[kMaxPlans];
+  int kind[kMaxPlans];
+  int invert[kMaxPlans];
+};
+
+// The kMultiVec words of one plan of kind KIND over the thread's cells.
+template <int KIND>
+__device__ __forceinline__ void sense_cells(const float4 (&v)[kWordBits],
+                                            const Refs& refs,
+                                            uint32_t (&word)[kMultiVec]) {
+#pragma unroll
+  for (int j = 0; j < kMultiVec; ++j) word[j] = 0;
+#pragma unroll
+  for (int k = 0; k < kWordBits; ++k) {
+    word[0] |= static_cast<uint32_t>(sense_bit<KIND>(v[k].x, refs, 0)) << k;
+    word[1] |= static_cast<uint32_t>(sense_bit<KIND>(v[k].y, refs, 0)) << k;
+    word[2] |= static_cast<uint32_t>(sense_bit<KIND>(v[k].z, refs, 0)) << k;
+    word[3] |= static_cast<uint32_t>(sense_bit<KIND>(v[k].w, refs, 0)) << k;
+  }
+}
+
+// One thread per kMultiVec words of one output row; a block covers
+// kMultiBlock * kMultiVec words of one row, whose address its first thread
+// looks up in the tables. Plan p's words go to out + p * plane.
+__global__ void __launch_bounds__(kMultiBlock)
+mlc_sense_multi_kernel(const RowTables tables, int n_tables,
+                       uint32_t* __restrict__ out, int64_t plane,
+                       int64_t words, int64_t blocks_per_row,
+                       const Plans plans, int n_plans) {
+  __shared__ const float* src;
+  __shared__ Plans sp;
+  const int64_t row = blockIdx.x / blocks_per_row;
+  const int64_t w0 =
+      ((blockIdx.x % blocks_per_row) * kMultiBlock + threadIdx.x) * kMultiVec;
+  if (threadIdx.x == 0) {
+    int i = 0;
+    while (i + 1 < n_tables && row >= tables.end[i]) ++i;
+    src = table_row(tables, i, row - (i ? tables.end[i - 1] : 0),
+                    words * kWordBits);
+    sp = plans;
+  }
+  __syncthreads();
+  if (w0 >= words) return;
+  const float4* base = reinterpret_cast<const float4*>(
+      src + (w0 / kLanes) * kTileCols + w0 % kLanes);
+  float4 v[kWordBits];
+#pragma unroll
+  for (int k = 0; k < kWordBits; ++k) v[k] = __ldg(base + k * (kLanes / 4));
+  uint32_t* dst = out + row * words + w0;
+#pragma unroll 1
+  for (int p = 0; p < n_plans; ++p) {
+    const Refs refs = sp.refs[p];
+    uint32_t word[kMultiVec];
+    if (sp.kind[p] == kLsb)
+      sense_cells<kLsb>(v, refs, word);
+    else if (sp.kind[p] == kMsb)
+      sense_cells<kMsb>(v, refs, word);
+    else
+      sense_cells<kSbr>(v, refs, word);
+    const uint32_t flip = sp.invert[p] ? ~0u : 0u;
+    *reinterpret_cast<uint4*>(dst + p * plane) =
+        make_uint4(word[0] ^ flip, word[1] ^ flip, word[2] ^ flip,
+                   word[3] ^ flip);
+  }
+}
+
 }  // namespace mcf
 
 // `bases`, `slots` and `ends` are host arrays of `n_tables` (1..kMaxTables)
@@ -292,6 +386,44 @@ extern "C" int mcf_sense_popcount(const float* const* bases,
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The rows as mcf_mlc_sense takes them, sensed under `n_plans`
+// (1..kMaxPlans) read plans in one pass: plan p's words (mcf_mlc_sense's
+// layout) go to out + p * plane, where plane >= rows * cols / 32 words.
+// `kinds` and `inverts` are host arrays of n_plans entries and `host_refs`
+// of n_plans * kMaxRefs; each kind is lsb, msb or sbr. Every
+// base and `out` must be 16-byte aligned, and `plane` a multiple of 4.
+extern "C" int mcf_mlc_sense_multi(const float* const* bases,
+                                   const int32_t* const* slots,
+                                   const int64_t* ends, int n_tables,
+                                   uint32_t* out, int64_t plane, int64_t rows,
+                                   int64_t cols, int n_plans, const int* kinds,
+                                   const int* inverts, const float* host_refs,
+                                   cudaStream_t stream) {
+  using namespace mcf;
+  const int64_t words = cols / kWordBits;
+  if (n_tables < 1 || n_tables > kMaxTables || rows < 1 || cols < kTileCols ||
+      cols % kTileCols || n_plans < 1 || n_plans > kMaxPlans ||
+      plane < rows * words || plane % kMultiVec || !aligned16(out))
+    return static_cast<int>(cudaErrorInvalidValue);
+  for (int i = 0; i < n_tables; ++i)
+    if (!aligned16(bases[i])) return static_cast<int>(cudaErrorInvalidValue);
+  Plans plans = {};
+  for (int p = 0; p < n_plans; ++p) {
+    if (kinds[p] != kLsb && kinds[p] != kMsb && kinds[p] != kSbr)
+      return static_cast<int>(cudaErrorInvalidValue);
+    plans.kind[p] = kinds[p];
+    plans.invert[p] = inverts[p];
+    plans.refs[p] = load_refs(host_refs + p * kMaxRefs);
+  }
+  const int64_t blocks_per_row =
+      (words + kMultiBlock * kMultiVec - 1) / (kMultiBlock * kMultiVec);
+  mlc_sense_multi_kernel<<<static_cast<unsigned int>(rows * blocks_per_row),
+                           kMultiBlock, 0, stream>>>(
+      load_tables(bases, slots, ends, n_tables), n_tables, out, plane, words,
+      blocks_per_row, plans, n_plans);
   return static_cast<int>(cudaGetLastError());
 }
 

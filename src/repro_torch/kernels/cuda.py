@@ -39,7 +39,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: launches per kernel wrapper (zero them with :func:`reset_launches`)
 launches: Dict[str, int] = {"mlc_sense": 0, "sense_reduce": 0,
                             "sense_reduce_popcount": 0, "bitwise_reduce": 0,
-                            "popcount_rows": 0, "sense_popcount": 0}
+                            "popcount_rows": 0, "sense_popcount": 0,
+                            "mlc_sense_multi": 0}
 #: per-source ``nvcc`` output (register / spill report) of the last build
 build_log: Dict[str, str] = {}
 
@@ -61,6 +62,8 @@ _SIGNATURES = {
     "mcf_mlc_sense_drain": ("mlc_sense", [_P, _P, _P, _I, _P, _P, _I64, _I64,
                                           _I64, _P, _I64, _I, _I, _I, _P, _P,
                                           _P]),
+    "mcf_mlc_sense_multi": ("mlc_sense", [_P, _P, _P, _I, _P, _I64, _I64,
+                                          _I64, _I, _P, _P, _P, _P]),
 }
 
 #: operand pointers one ``mcf_bitwise_reduce`` launch takes (``kMaxOperands``
@@ -77,6 +80,11 @@ MAX_TABLES = 32
 #: sense entry points copy into their kernel-parameter struct
 TablePointers = _P * MAX_TABLES
 TableEnds = _I64 * MAX_TABLES
+
+
+#: read plans one ``mcf_mlc_sense_multi`` launch takes (``kMaxPlans`` in
+#: ``csrc/mlc_sense.cu``); more run in several launches
+MAX_PLANS = 8
 
 
 def reset_launches() -> None:

@@ -36,21 +36,40 @@ as it writes them), an event, and the chunk's copy on a copy stream that
 waits for the event; so a chunk's copy runs while the next is sensed, and
 the host pays for one call, not one per chunk.  Its plain version is
 :func:`drain_chunks` over :func:`mlc_sense`.
+
+:func:`mlc_sense_multi` (``mcf_mlc_sense_multi``, same source) senses the
+same rows under several read plans in one pass, to one word set a plan:
+what the executor runs where its sense items read one page list under
+more than one plan, or twice under one.  It replaces no TPU kernel (the
+JAX package runs ``mlc_sense`` once a plan): each cell is loaded once
+and sensed under every plan, so its least time is ``R * C * (4 + P/8) B``
+over the memory rate.  Each thread loads four consecutive words' cells
+with 16-byte loads and keeps them in registers while it senses and
+stores each plan's words in turn.  It takes the MLC kinds
+(:data:`MULTI_KINDS`), each plan with its own references and inversion.
+Its plain version is :data:`reference_multi`.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
 from itertools import accumulate
-from typing import Callable, Optional, Sequence, Union
+from typing import Callable, Optional, Sequence, Tuple, Union
 
 import torch
 
 from repro_torch.kernels import cuda, ref
-from repro_torch.kernels.ref import TILE_COLS, WORD_BITS
+from repro_torch.kernels.ref import MAX_REFS, TILE_COLS, WORD_BITS
 from repro_torch.kernels.rows import Rows, identity
 
 #: the plain PyTorch versions of these kernels
 reference = ref.mlc_sense
 reference_popcount = ref.sense_popcount
+reference_multi = ref.mlc_sense_multi
+
+#: read kinds :func:`mlc_sense_multi` takes (parity reads go through
+#: :func:`mlc_sense`)
+MULTI_KINDS = ("lsb", "msb", "sbr")
 
 
 def mlc_sense(vth: Union[torch.Tensor, Rows], refs: Sequence[float], *,
@@ -82,6 +101,67 @@ def mlc_sense(vth: Union[torch.Tensor, Rows], refs: Sequence[float], *,
                             cuda.TableEnds(*ends), len(part), dst, ends[-1],
                             c, kind_code, n_refs, int(invert), refs_c)
             dst += ends[-1] * words * 4        # int32 words
+    return out
+
+
+@functools.lru_cache(maxsize=1024)
+def _plan_args(plans: tuple) -> tuple:
+    """Per launch of up to ``cuda.MAX_PLANS`` of ``plans``: the count and
+    the C arrays of kind codes, inversions and references that
+    ``mcf_mlc_sense_multi`` takes (built once per plan tuple: a cached
+    runner senses the same plans at every call)."""
+    out = []
+    for p0 in range(0, len(plans), cuda.MAX_PLANS):
+        chunk = plans[p0:p0 + cuda.MAX_PLANS]
+        args = [cuda.sense_args(refs, kind, 0) for refs, kind, _ in chunk]
+        n = len(chunk)
+        out.append((n, (ctypes.c_int * n)(*(code for code, _, _ in args)),
+                    (ctypes.c_int * n)(*(int(inv) for _, _, inv in chunk)),
+                    (ctypes.c_float * (n * MAX_REFS))(
+                        *(r for _, _, padded in args for r in padded))))
+    return tuple(out)
+
+
+def mlc_sense_multi(vth: Union[torch.Tensor, Rows],
+                    plans: Sequence[Tuple[Sequence[float], str, bool]]
+                    ) -> torch.Tensor:
+    """Sense R Vth rows under P read plans ``(refs, kind, invert)``, each
+    kind in :data:`MULTI_KINDS`, reading each row once -> (P, R, C // 32)
+    int32: plane ``p`` the words :func:`mlc_sense` gives under plan ``p``.
+    One launch a ``cuda.MAX_PLANS`` plans and ``cuda.MAX_TABLES`` tables."""
+    plans = tuple((tuple(refs), kind, bool(invert))
+                  for refs, kind, invert in plans)
+    if not plans or any(kind not in MULTI_KINDS for _, kind, _ in plans):
+        raise ValueError(f"read kinds must be among {MULTI_KINDS}, got "
+                         f"{[kind for _, kind, _ in plans]}")
+    c = vth.shape[1] if isinstance(vth, torch.Tensor) else vth.cols
+    if c % TILE_COLS:
+        raise ValueError(f"cols {c} must be a multiple of {TILE_COLS}")
+    if vth.device.type == "cpu":
+        dense = vth if isinstance(vth, torch.Tensor) else vth.gather()
+        return reference_multi(dense, plans)
+    if isinstance(vth, torch.Tensor):
+        vth = identity(cuda.check_cuda("vth", vth, torch.float32))
+    words = c // WORD_BITS
+    plane = vth.n_rows * words
+    out = torch.empty((len(plans), vth.n_rows, words), dtype=torch.int32,
+                      device=vth.device)
+    if plane == 0:
+        return out
+    for k, (n, kinds, inverts, refs_c) in enumerate(_plan_args(plans)):
+        dst = out.data_ptr() + k * cuda.MAX_PLANS * plane * 4  # int32 words
+        row0 = 0
+        for s in range(0, len(vth), cuda.MAX_TABLES):
+            part = (vth if len(vth) <= cuda.MAX_TABLES
+                    else vth[s:s + cuda.MAX_TABLES])
+            ends = list(accumulate(int(t.shape[0]) for t in part.slots))
+            if ends[-1]:
+                bases, slots = cuda.table_args(part)
+                cuda.launch("mlc_sense_multi", "mcf_mlc_sense_multi", bases,
+                            slots, cuda.TableEnds(*ends), len(part),
+                            dst + row0 * words * 4, plane, ends[-1], c, n,
+                            kinds, inverts, refs_c)
+            row0 += ends[-1]
     return out
 
 

@@ -19,9 +19,12 @@ from repro_torch.kernels.bitops import bitwise_reduce
 from repro_torch.kernels.fused import Operands
 from repro_torch.kernels.popcount import popcount_rows
 
-__all__ = ["sense_plan", "sense_drain_plan", "sense_popcount_plan",
-           "sense_reduce_plan", "sense_reduce_popcount_plan", "bitwise_reduce",
-           "popcount_rows"]
+__all__ = ["MULTI_KINDS", "sense_plan", "sense_multi_plan", "sense_drain_plan",
+           "sense_popcount_plan", "sense_reduce_plan",
+           "sense_reduce_popcount_plan", "bitwise_reduce", "popcount_rows"]
+
+#: read kinds :func:`sense_multi_plan` takes
+MULTI_KINDS = _mlc.MULTI_KINDS
 
 
 def _plan_parts(plan) -> tuple[tuple, str, bool, int]:
@@ -33,6 +36,13 @@ def sense_plan(vth: Operands, plan) -> torch.Tensor:
     refs, kind, sense_invert, n_refs = _plan_parts(plan)
     return _mlc.mlc_sense(vth, refs, kind=kind, invert=sense_invert,
                           n_refs=n_refs)
+
+
+def sense_multi_plan(vth: Operands, plans) -> torch.Tensor:
+    """Run P ReadPlans through the multi-plan sense kernel, each row read
+    once: R rows -> (P, R, C // 32), plane ``p`` plan ``p``'s words."""
+    return _mlc.mlc_sense_multi(vth, [(p.refs, p.kind, p.uses_inverse)
+                                      for p in plans])
 
 
 def sense_drain_plan(vth: Operands, plan, host: torch.Tensor, chunk_rows: int,

@@ -96,6 +96,15 @@ def mlc_sense(vth: torch.Tensor, refs: Refs, kind: str,
     return pack_bits(sense_bits(vth, refs, kind, invert, n_refs))
 
 
+def mlc_sense_multi(vth: torch.Tensor,
+                    plans: Sequence[tuple]) -> torch.Tensor:
+    """Sense under several plans: (R, C) float32 Vth and P read plans
+    ``(refs, kind, invert)`` -> (P, R, C // 32) int32, plane ``p`` the
+    words :func:`mlc_sense` gives under plan ``p``."""
+    return torch.stack([mlc_sense(vth, refs, kind, invert)
+                        for refs, kind, invert in plans])
+
+
 def sense_popcount(vth: torch.Tensor, refs: Refs, kind: str,
                    invert: bool = False, n_refs: int | None = None,
                    n_bits: int | None = None) -> torch.Tensor:

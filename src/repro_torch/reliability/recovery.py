@@ -179,7 +179,7 @@ class ReliabilityManager:
             if cost.per_ch:
                 ledger.add_channel_batch(cost.per_ch, label=step,
                                          category="recovery")
-        run = ex._build(plan, (False,), None)
+        run = ex._build(plan, (False,), None, ex.row_sharing(plan, None))
         group_rows, fused_rows = ex.unit_rows(plan, None)
         return run(group_rows, fused_rows,
                    (sess.tail_mask(n_bits, plan.out_words),), (n_bits,))[0]

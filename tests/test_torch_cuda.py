@@ -94,7 +94,33 @@ def test_cuda_kernels_match_plain_versions(card):
                                bitops.reference(words, op, invert))
     assert torch.equal(popcount.popcount_rows(words[0]),
                        popcount.reference(words[0]))
+    _hold_multi_plan_sense(gen, (rows, many), card)
     torch.cuda.synchronize()
+
+
+def _hold_multi_plan_sense(gen, vths, card):
+    """``mlc_sense_multi`` under every MLC kind, both inversions and
+    shifted references (1 to 12 plans; past 8, two launches), over the
+    out-of-order and the 40 tables, then the range-scan cell's pair shape
+    (4,096 rows of 131072 cells through an out-of-order table, three
+    plans): each plane equals the plain version's."""
+    pool = [(refs, kind, inv) for kind, refs in KIND_CASES[:3]
+            for inv in (False, True)]
+    pool += [([r - 0.21 for r in refs], kind, inv) for refs, kind, inv in pool]
+    for vth_rows in vths:
+        dense = vth_rows.gather()
+        for n in (1, 3, 8, 12):
+            assert torch.equal(mlc_sense.mlc_sense_multi(vth_rows, pool[:n]),
+                               mlc_sense.reference_multi(dense, pool[:n]))
+    shard = (torch.randn(4096 + 64, 131072, generator=gen) * 2 + 2).to(card)
+    table = torch.randperm(4096 + 64, generator=gen)[:4096].to(
+        torch.int32).to(card)
+    rows = Rows([shard], [table])
+    plans = [pool[0], pool[3], pool[4]]
+    launches = cuda.launches["mlc_sense_multi"]
+    got = mlc_sense.mlc_sense_multi(rows, plans)
+    assert cuda.launches["mlc_sense_multi"] - launches == 1
+    assert torch.equal(got, mlc_sense.reference_multi(rows.gather(), plans))
 
 
 def _hold_sense_drain(gen, vths, refs, kind, invert, card):
@@ -127,8 +153,8 @@ def _hold_sense_drain(gen, vths, refs, kind, invert, card):
 @pytest.mark.gpu
 def test_session_on_the_card_launches_every_kernel(card, monkeypatch):
     """A small session on the card equals the numpy oracle and goes through
-    all six kernels: a fused chain's count, a combine root's count and a
-    pair's count sensed in one pass.  A drained pair root in out-of-order
+    all seven kernels: a fused chain's count, a combine root's count, a
+    pair's count sensed in one pass and a pair read once under two plans.  A drained pair root in out-of-order
     slots, sensed and copied host-ward in three chunks, equals the one-shot
     drain bit for bit."""
     rng = np.random.default_rng(0)
@@ -153,6 +179,10 @@ def test_session_on_the_card_launches_every_kernel(card, monkeypatch):
     assert sess.popcount(mixed) == int(((b[0] & b[1]) | (b[2] ^ b[3])).sum())
     assert sess.popcount(v[4] & v[5]) == int((b[4] & b[5]).sum())
     assert sess.sense_counted_roots == 1
+    shared = (v[4] & v[5]) ^ (v[4] | v[5])
+    got = sess.materialize(shared, unpacked=True).cpu().numpy().astype(bool)
+    np.testing.assert_array_equal(got, (b[4] & b[5]) ^ (b[4] | b[5]))
+    assert (sess.shared_row_senses, sess.shared_row_items) == (1, 2)
     assert all(count > 0 for count in cuda.launches.values()), cuda.launches
     _hold_chunked_drain(sess, rng, monkeypatch)
 
